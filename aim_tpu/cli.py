@@ -11,8 +11,9 @@ Flags follow the reference exactly: -i -o -l -e -n -m -x -g -a -b -r -t -d
 (ref: run-wfa-pim-mram.py:6-33).  MAX_SCORE / READ_SIZE are derived with
 the launchers' formulas (see config.derive_config); what the reference
 pushes through `make FLAGS=-D…` becomes a re-jit here.  -t/-d (tasklets /
-DPUs) have no hardware meaning on TPU and are accepted for compatibility;
--d additionally caps the device count used.
+DPUs) map to the per-device batch and the device count: -t shrinks the
+batch, -d caps the number of devices the run is sharded over (default:
+every visible device).
 """
 
 from __future__ import annotations
@@ -59,18 +60,16 @@ def build_parser() -> argparse.ArgumentParser:
                             "honored only when 1 <= t <= the heuristic "
                             "choice; ref: run-wfa-pim-mram.py:108-112)")
         p.add_argument("-d", "--nr_of_dpus", type=int, default=None,
-                       help="reference compat; caps the TPU device count")
+                       help="reference compat; caps the device count")
         p.add_argument("--variant", choices=["vmem", "hbm"], default="vmem",
                        help="memory tier: vmem=short-read (DPU-WRAM "
                             "analogue), hbm=long-read (DPU-MRAM analogue)")
-        p.add_argument("--backend", choices=["auto", "pallas", "xla"],
-                       default="auto")
         p.add_argument("--batch-pairs", type=int, default=None,
                        help="pairs per device batch")
         p.add_argument("--energy", action="store_true",
                        help="print an estimated kernel-phase energy (J); "
                             "the reference's -DENERGY probe analogue "
-                            "(device-seconds x AIM_TPU_WATTS nominal)")
+                            "(device-seconds x the card's power limit)")
         p.add_argument("--device-log", type=str, default="",
                        help="per-device run log path (the reference's "
                             "dpu-out file; disabled when empty)")
@@ -119,8 +118,7 @@ def config_from_args(args) -> "AlignConfig":
     if args.algo == "genasm":
         # unit costs by definition; MAX_SCORE derives from the NW formula
         cfg = derive_config("genasm", args.read_length, args.error,
-                            backtrace=args.backtrace, variant=args.variant,
-                            backend=args.backend)
+                            backtrace=args.backtrace, variant=args.variant)
     # Penalty validation mirrors the launchers (run-wfa-pim-mram.py:44-46).
     elif args.algo in ("swg", "wfa"):
         if (args.match_cost > 0 or args.mismatch_cost <= 0
@@ -133,7 +131,7 @@ def config_from_args(args) -> "AlignConfig":
             gap_opening=args.gap_opening, gap_extending=args.gap_extending,
             backtrace=args.backtrace,
             adaptive=getattr(args, "reduced", False),
-            variant=args.variant, backend=args.backend)
+            variant=args.variant)
     else:
         if args.match_cost > 0 or args.mismatch_cost <= 0 or args.gap <= 0:
             print("Wrong penalties must be  m <= 0 and g, x > 0\n")
@@ -142,7 +140,7 @@ def config_from_args(args) -> "AlignConfig":
             "nw", args.read_length, args.error,
             match=args.match_cost, mismatch=args.mismatch_cost,
             gap=args.gap, backtrace=args.backtrace,
-            variant=args.variant, backend=args.backend)
+            variant=args.variant)
     if args.batch_pairs:
         cfg = cfg.replace(batch_pairs=args.batch_pairs)
     if getattr(args, "overflow_backtrace", False):
@@ -150,7 +148,7 @@ def config_from_args(args) -> "AlignConfig":
     # -t override: the reference honors it only when it forces the
     # heuristic DOWN (1 <= t <= chosen NR_TASKLETS, run-wfa-pim-mram.py:
     # 106-112).  The analogue knob here is the per-device pair batch, in
-    # 1024-pair units (default 16384 = "16 tasklets").
+    # 1024-pair units (default 65536 = "64 tasklets").
     t = getattr(args, "nr_of_tasklets", None)
     if t is not None and 1 <= t <= cfg.batch_pairs // 1024:
         cfg = cfg.replace(batch_pairs=t * 1024)

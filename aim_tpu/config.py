@@ -83,17 +83,17 @@ class AlignConfig:
     # the rendition walks from the deepest live computed level
     # (oracle.cpp aim_wfa_align / golden.wfa_golden).
     overflow_backtrace: bool = False
-    # Memory tier: 'vmem' keeps all per-pair alignment state on-chip
-    # (the reference's DPU-WRAM variants); 'hbm' spills wavefront /
-    # traceback state to HBM (the DPU-MRAM variants).  Semantics are
-    # identical except where the reference's variants themselves diverge
-    # (WFA overflow backtrace; see ops/wfa*.py).
+    # Memory tier, with the reference's variant semantics: 'vmem' is the
+    # short-read tier (the DPU-WRAM variants: WRAM-feasible configs only,
+    # SWG int8 cells below MAX_SCORE 127), 'hbm' the long-read tier (the
+    # DPU-MRAM variants: int16 SWG cells).  Both run the same device
+    # kernels.
     variant: str = "vmem"
-    # Kernel backend: 'auto' | 'pallas' | 'xla'.
-    backend: str = "auto"
     # Per-device pair-batch tile (pairs aligned concurrently per kernel
-    # launch).  The analogue of NR_TASKLETS × pairs-per-tasklet.
-    batch_pairs: int = 16384
+    # launch).  The analogue of NR_TASKLETS × pairs-per-tasklet.  65536
+    # was the fastest of 16k/64k/256k end to end on an H100 at the
+    # 100 bp headline (PERF.md); the memory cap lowers it for long reads.
+    batch_pairs: int = 65536
 
     # ---- derived dtype policy ------------------------------------------
     @property
@@ -132,8 +132,6 @@ class AlignConfig:
             raise ValueError(f"unknown algo {self.algo!r}; want one of {VALID_ALGOS}")
         if self.variant not in ("vmem", "hbm"):
             raise ValueError(f"unknown variant {self.variant!r}")
-        if self.backend not in ("auto", "pallas", "xla"):
-            raise ValueError(f"unknown backend {self.backend!r}")
         if self.read_size <= 0 or self.read_size % 8 != 0:
             raise ValueError("read_size must be a positive multiple of 8 "
                              "(ref launcher pads with roundup8)")
@@ -164,9 +162,7 @@ def wram_feasible(cfg: AlignConfig) -> bool:
     """
     R = cfg.read_size
     if cfg.algo == ALGO_GENASM:
-        # No reference WRAM envelope exists for GenASM (empty submodule);
-        # the device-tier gate is ops/genasm_pallas.vmem_fit_genasm and
-        # oversize configs serve from the exact host tier.
+        # No reference WRAM envelope exists for GenASM (empty submodule).
         return True
     if cfg.algo == ALGO_NW:
         bound = 100 + 2 * R + R * R * 2

@@ -3,7 +3,7 @@
 These simulate the reference semantics directly, including the flat
 1-D DP tape (``dp[(tlen+1)*h + v]``, v ranging to plen) whose slot aliasing
 for plen > tlen is observable behavior (ref: NW/DPU-WRAM/dpu/nw.c:139-145).
-They are used in tests to cross-check the native C++ oracle and the TPU
+They are used in tests to cross-check the native C++ oracle and the device
 kernels on small inputs.  Scores follow each algorithm's conventions:
 NW/SWG penalties (minimized), WFA accumulated score (or MAX_SCORE+1 on
 overflow, ref: WFA/DPU-MRAM/dpu/wfa.c:399-404).

@@ -1,13 +1,15 @@
 """ctypes bindings to the native host runtime (oracle.cpp).
 
 The shared library is built lazily with g++ on first use and cached next to
-the source (keyed by source mtime).  Everything here also has a pure-Python
-fallback in aim_tpu.golden for environments without a toolchain.
+the source, keyed by a hash of the source (a checkout gives source and
+library the same mtime, so mtimes cannot tell a stale build).  Everything
+here also has a pure-Python reference in aim_tpu.golden.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -28,13 +30,29 @@ _i32p = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
 _chp = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C_CONTIGUOUS")  # char*
 
 
+def _source_hash() -> str:
+    with open(_SRC, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
 def _build() -> str:
-    if os.path.exists(_SO) and os.path.getmtime(_SO) >= os.path.getmtime(_SRC):
-        return _SO
-    tmp = _SO + ".tmp"
+    """Build the library unless the one on disk was built from this exact
+    source (its hash is recorded beside it)."""
+    stamp = _SO + ".sha256"
+    want = _source_hash()
+    try:
+        with open(stamp) as f:
+            if f.read().strip() == want and os.path.exists(_SO):
+                return _SO
+    except OSError:
+        pass
+    tmp = f"{_SO}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-o", tmp, _SRC]
     subprocess.run(cmd, check=True, capture_output=True)
     os.replace(tmp, _SO)
+    with open(f"{stamp}.{os.getpid()}.tmp", "w") as f:
+        f.write(want + "\n")
+    os.replace(f"{stamp}.{os.getpid()}.tmp", stamp)
     return _SO
 
 
@@ -106,26 +124,11 @@ def load():
             ctypes.c_int, ctypes.c_long, ctypes.c_long, ctypes.c_long,
             ctypes.c_long, _chp, _i32p, _i32p,
         ]
-        lib.aim_wfa_runs_to_ops.restype = None
-        lib.aim_wfa_runs_to_ops.argtypes = [
-            _i16p, ctypes.c_long, _i32p, _i32p, _i32p, ctypes.c_long,
-            ctypes.c_int, ctypes.c_int, _chp, _i32p, _i32p,
-        ]
         lib.aim_genasm_align.restype = None
         lib.aim_genasm_align.argtypes = [
             _i8p, _i8p, _i32p, _i32p, ctypes.c_long,
             ctypes.c_int, ctypes.c_int, ctypes.c_int,
             _i32p, _chp, _i32p, _i32p,
-        ]
-        lib.aim_wfa_steps_to_ops.restype = None
-        lib.aim_wfa_steps_to_ops.argtypes = [
-            _i32p, ctypes.c_long, _i32p, _i32p, ctypes.c_long,
-            ctypes.c_int, ctypes.c_int, _chp, _i32p, _i32p, _i32p,
-        ]
-        lib.aim_pack_seqs.restype = ctypes.c_int
-        lib.aim_pack_seqs.argtypes = [
-            _i8p, _i8p, _i32p, _i32p, ctypes.c_long, ctypes.c_int,
-            ctypes.c_int, _i8p, _i8p,
         ]
         lib.aim_emit_output.restype = ctypes.c_long
         lib.aim_emit_output.argtypes = [
@@ -184,8 +187,7 @@ def parse_pairs(path: str, max_pairs: int, read_size: int, threads: int = 1):
 def _parse_pairs_mt(lib, path: str, max_pairs: int, read_size: int,
                     threads: int):
     """Window-parallel parse: boundary scan + per-window direct parses
-    into disjoint slices of shared output arrays (VERDICT r3 item 9;
-    parse is the host-pipeline floor at ~4.7 cores/chip, PERFNOTES §5)."""
+    into disjoint slices of shared output arrays."""
     from concurrent.futures import ThreadPoolExecutor
 
     step = -(-max_pairs // threads)
@@ -378,14 +380,11 @@ def swg_traceback_bits(bits, plens, tlens, max_ops):
 
 def wfa_backtrace_batch(hist_m, hist_i, hist_d, klo, khi, flags, scores,
                         pats, txts, plens, tlens, *, mismatch, gap_o, gap_e,
-                        max_score, score_major=False):
+                        max_score):
     """Walk device-produced dense WFA histories into ops buffers.
 
-    Two accepted layouts (zero-copy either way):
-      score_major=False: hist [n, S+1, K] int16, klo/khi/flags [n, S+1]
-      score_major=True:  hist [S', n, Kp] int16 (S' >= S+1, Kp >= K),
-                         klo/khi/flags [S', n] — the Pallas kernels' native
-                         layout; walked via strides, no transpose.
+    Layout: hist [n, S+1, K] int16 (views with dense k rows are walked via
+    their strides, no copy), klo/khi/flags [n, S+1].
     """
     lib = load()
     pats, txts, plens, tlens = _prep(pats, txts, plens, tlens)
@@ -405,16 +404,8 @@ def wfa_backtrace_batch(hist_m, hist_i, hist_d, klo, khi, flags, scores,
     khi = np.ascontiguousarray(khi, np.int32)
     flags = np.ascontiguousarray(flags, np.uint8)
     scores = np.ascontiguousarray(scores, np.int32)
-    st = [x // hist_m.itemsize for x in hist_m.strides]
-    if score_major:
-        Sp, n2, Kp = hist_m.shape
-        assert n2 >= n  # padded batch; walker visits the first n pairs
-        h_score, h_pair = st[0], st[1]
-        m_pair, m_score = 1, flags.shape[1]
-    else:
-        _, S1, K = hist_m.shape
-        h_pair, h_score = st[0], st[1]
-        m_pair, m_score = S1, 1
+    h_pair, h_score = [x // hist_m.itemsize for x in hist_m.strides[:2]]
+    m_pair, m_score = flags.shape[1], 1
     ops = np.zeros((n, max_ops), np.uint8)
     begin = np.zeros(n, np.int32)
     end = np.zeros(n, np.int32)
@@ -445,57 +436,6 @@ def emit_output(path, idx, scores, ops, begin, end, backtrace):
     if r < 0:
         raise IOError(f"cannot write {path}")
     return r
-
-
-def pack_seqs(pats, txts, plens, tlens, rp):
-    """2-bit-pack a pair batch for upload (see ops/ops/common.pack_seqs).
-    Returns (packed_pats, packed_txts, True) or (pats, txts, False)."""
-    lib = load()
-    pats, txts, plens, tlens = _prep(pats, txts, plens, tlens)
-    n, read_size = pats.shape
-    rb = rp // 4
-    out_p = np.zeros((n, rb), np.uint8)
-    out_t = np.zeros((n, rb), np.uint8)
-    ok = lib.aim_pack_seqs(pats, txts, plens, tlens, n, read_size, rp,
-                           out_p, out_t)
-    if not ok:
-        return pats, txts, False
-    return out_p, out_t, True
-
-
-def wfa_runs_to_ops(runs, scores, plens, tlens, *, max_score, max_ops):
-    """Expand device CIGAR runs ([n, NRL] i16, lane 0 = cursor) into the
-    reference ops buffers (see oracle.cpp aim_wfa_runs_to_ops)."""
-    lib = load()
-    runs = np.ascontiguousarray(runs, np.int16)
-    n, nrl = runs.shape
-    scores = np.ascontiguousarray(scores, np.int32)
-    plens = np.ascontiguousarray(plens, np.int32)
-    tlens = np.ascontiguousarray(tlens, np.int32)
-    ops = np.zeros((n, max_ops), np.uint8)
-    begin = np.zeros(n, np.int32)
-    end = np.zeros(n, np.int32)
-    lib.aim_wfa_runs_to_ops(runs, nrl, scores, plens, tlens, n,
-                            max_score, max_ops, ops, begin, end)
-    return ops, begin, end
-
-
-def wfa_steps_to_ops(records, plens, tlens, *, max_score, max_ops):
-    """Expand the v2 kernel's per-score-level step records ([n, SR] i32,
-    see ops/wfa_pallas2.py) into the reference ops buffers.  Returns
-    (scores, ops, begin, end); scores come from the record's score row."""
-    lib = load()
-    records = np.ascontiguousarray(records, np.int32)
-    n, sr = records.shape
-    plens = np.ascontiguousarray(plens, np.int32)
-    tlens = np.ascontiguousarray(tlens, np.int32)
-    ops = np.zeros((n, max_ops), np.uint8)
-    scores = np.zeros(n, np.int32)
-    begin = np.zeros(n, np.int32)
-    end = np.zeros(n, np.int32)
-    lib.aim_wfa_steps_to_ops(records, sr, plens, tlens, n,
-                             max_score, max_ops, ops, scores, begin, end)
-    return scores, ops, begin, end
 
 
 def genasm_align(pats, txts, plens, tlens, *, max_score, backtrace,

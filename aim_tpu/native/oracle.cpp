@@ -1,8 +1,8 @@
 // aim-tpu native host runtime.
 //
 // Fresh C++ implementation of the host-side tier of the framework:
-//   * pair-file parsing + packing  (role of get_reads, ref: WFA/DPU-MRAM/host/host.c:91-134)
-//   * exact-semantics scalar aligners used as the test ORACLE for the TPU
+//   * pair-file parsing  (role of get_reads, ref: WFA/DPU-MRAM/host/host.c:91-134)
+//   * exact-semantics scalar aligners used as the test ORACLE for the device
 //     kernels (role of the DPU kernels, ref: NW/SWG/WFA */dpu/*.c)
 //   * batch CIGAR traceback walkers over device-produced direction bits /
 //     wavefront histories (the sequential, branchy tail of each alignment
@@ -62,8 +62,7 @@ extern "C" long aim_parse_pairs(const char *path, long max_pairs, int read_size,
 
   long pos = 0, n = 0, line_no = 0;
   while (n < max_pairs && pos < fsize) {
-    // Pattern line (memchr: the byte-at-a-time scan measured 2x slower,
-    // PERFNOTES.md §5).
+    // Pattern line (memchr: faster than a byte-at-a-time scan).
     long start1 = pos;
     const char *nl1 = (const char *)memchr(buf.data() + pos, '\n',
                                            (size_t)(fsize - pos));
@@ -88,7 +87,7 @@ extern "C" long aim_parse_pairs(const char *path, long max_pairs, int read_size,
     if (plen < 0) plen = 0;
     if (tlen < 0) tlen = 0;
     // tail-only memset: the head is overwritten by the memcpy (halves
-    // the store traffic; parse is the host-pipeline floor, PERFNOTES §5)
+    // the store traffic)
     std::memset(patterns + n * read_size + plen, 0, (size_t)(read_size - plen));
     std::memset(texts + n * read_size + tlen, 0, (size_t)(read_size - tlen));
     std::memcpy(patterns + n * read_size, buf.data() + start1 + 1, (size_t)plen);
@@ -306,7 +305,7 @@ extern "C" long aim_parse_pairs_at(const char *path, int64_t byte_offset,
 // NW (edit distance, linear gap) oracle — exact flat-tape semantics.
 //
 // cell type int16 (NW_W16, ref: NW/*/common/common.h:87).
-// Direction-bit codes shared with the TPU kernel + walker:
+// Direction-bit codes shared with the device kernel + walker:
 //   0 = 'D' (v-1), 1 = 'I' (h-1), 2 = diag 'M', 3 = diag 'X'.
 // Tie-break priority D -> I -> diag, X iff cell == diag + MISMATCH
 // (ref: NW/DPU-WRAM/dpu/nw.c:76-94).
@@ -422,7 +421,7 @@ extern "C" void aim_nw_traceback_bits(const uint8_t *bits, long h_stride, long w
 // semantics with selectable cell width (int8 iff MAX_SCORE < 127 in the
 // short-read tier, ref: SWG/DPU-WRAM/common/common.h:71-75).
 //
-// Direction-bit codes shared with the TPU kernel + walker (per cell):
+// Direction-bit codes shared with the device kernel + walker (per cell):
 //   bits 0..1: M-layer choice: 0 = enter D, 1 = enter I, 2 = diag 'M',
 //              3 = diag 'X'   (priority D -> I -> match -> mismatch,
 //              ref: SWG/DPU-WRAM/dpu/swg.c:79-98)
@@ -587,7 +586,7 @@ extern "C" void aim_swg_traceback_bits(const uint8_t *bits, long h_stride, long 
 // ---------------------------------------------------------------------------
 // WFA (gap-affine wavefront) oracle + dense-history backtrace walker.
 //
-// Dense history layout (shared with the TPU kernels):
+// Dense history layout (shared with the device kernel):
 //   hist_{m,i,d}: [S+1, K] int16, K = 2*max_score+1, lane index = k+max_score
 //   klo/khi:      [S+1] int32   (post-reduce extents)
 //   flags:        [S+1] uint8   bit0 exists, bit1 m_null, bit2 i_null,
@@ -996,60 +995,6 @@ extern "C" void aim_wfa_backtrace_batch(const int16_t *hist_m, const int16_t *hi
 }
 
 // ---------------------------------------------------------------------------
-// Expansion of device-produced CIGAR runs into reference ops buffers.
-//
-// The Pallas WFA kernel backtraces on device and emits run-length records:
-// runs[i] is an [nrl] int16 lane row, lane 0 = final cursor rc, runs at
-// lanes rc+1..nrl-1 in alignment order, value = op<<12 | len with op
-// 0='M' 1='X' 2='I' 3='D'.  Expanding them right-to-left-equivalently into
-// the 'M'-prefilled ops buffer reproduces exactly what the reference DPU
-// backtrace leaves in its operations memory (ref: wfa.c:499-533), so the
-// downstream emitter is unchanged.  Pairs with score > max_score keep the
-// prefilled single 'M' (overflow, ref: wfa.c:399-404).
-// ---------------------------------------------------------------------------
-
-extern "C" void aim_wfa_runs_to_ops(const int16_t *runs, long nrl,
-                                    const int32_t *scores,
-                                    const int32_t *plens,
-                                    const int32_t *tlens, long n,
-                                    int max_score, int max_ops, char *ops,
-                                    int32_t *begin_off, int32_t *end_off) {
-  static const char OPC[4] = {'M', 'X', 'I', 'D'};
-  for (long i = 0; i < n; ++i) {
-    char *o = ops + i * max_ops;
-    std::memset(o, 'M', (size_t)max_ops);
-    const int max_operations = plens[i] + tlens[i];
-    int begin = max_operations - 1;
-    if (scores[i] <= max_score) {
-      const int16_t *r = runs + i * nrl;
-      // lane 0 = cursor_lo8 | flags << 8 | cursor_hi << 10 (the hi
-      // bits are zero for every NRL <= 256 record, so the historical
-      // 8-bit layout decodes identically)
-      long start = ((r[0] & 0xFF) | (((r[0] >> 10) & 0x1F) << 8)) + 1;
-      if (start < 1) start = 1;
-      if (start > nrl) start = nrl;
-      long total = 0;
-      for (long j = start; j < nrl; ++j) total += r[j] & 0xFFF;
-      int pos = max_operations - (int)total;
-      // Defensive clamps: a malformed record (e.g. a flagged pair whose
-      // cursor underflowed) must never write outside this pair's row.
-      if (pos < 0) pos = 0;
-      if (pos > max_ops) pos = max_ops;
-      begin = pos;
-      for (long j = start; j < nrl; ++j) {
-        int len = r[j] & 0xFFF;
-        if (len > max_ops - pos) len = max_ops - pos;
-        char c = OPC[(r[j] >> 12) & 3];
-        std::memset(o + pos, c, (size_t)len);
-        pos += len;
-      }
-    }
-    begin_off[i] = begin;
-    end_off[i] = max_operations;
-  }
-}
-
-// ---------------------------------------------------------------------------
 // GenASM oracle — CLEAN bounded-Levenshtein semantics (the reference ships
 // GenASM only as an empty submodule; aim-tpu anchors the family to the
 // true unit-cost edit distance with the NW walker's D -> I -> diagonal
@@ -1119,96 +1064,13 @@ extern "C" void aim_genasm_align(const uint8_t *patterns, const uint8_t *texts,
 }
 
 // ---------------------------------------------------------------------------
-// Step-record expansion for the Pallas v2 WFA kernel (ops/wfa_pallas2.py).
-// records[i]: rows 0..max_score = per-score-level step records emitted by
-// the on-device backtrace in DESCENDING score order (gap | match stroke |
-// op per level), rows max_score+1 / max_score+2 = final strokes, row
-// max_score+3 = score.  The device walk emitted right-to-left, so the
-// left-to-right ops order is: final-I, final-D (or final-M), then levels
-// ASCENDING with each level reversed to (op, match stroke, gap) — the
-// same reconstruction the reference performs in its 2*READ_SIZE buffer
-// (ref: WFA/DPU-MRAM/dpu/wfa_backtracing.c:219-375, host.c:332-353).
-// Record encoding: bits 0..13 match-stroke len, 14..15 op (0 none,
-// 1 X, 2 I, 3 D), 16..26 trailing-gap len, 27 trailing-gap-is-D.
-// ---------------------------------------------------------------------------
-
-extern "C" void aim_wfa_steps_to_ops(const int32_t *records, long sr,
-                                     const int32_t *plens,
-                                     const int32_t *tlens, long n,
-                                     int max_score, int max_ops, char *ops,
-                                     int32_t *scores_out, int32_t *begin_off,
-                                     int32_t *end_off) {
-  static const char OPC[4] = {'M', 'X', 'I', 'D'};
-  std::vector<char> runs_op;
-  std::vector<int> runs_len;
-  for (long i = 0; i < n; ++i) {
-    char *o = ops + i * max_ops;
-    std::memset(o, 'M', (size_t)max_ops);
-    const int32_t *r = records + i * sr;
-    const int score = r[max_score + 3];
-    scores_out[i] = score;
-    const int max_operations = plens[i] + tlens[i];
-    int begin = max_operations - 1;
-    if (score <= max_score) {
-      runs_op.clear();
-      runs_len.clear();
-      int fin2 = r[max_score + 2];  // final I stroke (leftmost)
-      if (fin2 & 0x3FFF) {
-        runs_op.push_back(OPC[(fin2 >> 14) & 3]);
-        runs_len.push_back(fin2 & 0x3FFF);
-      }
-      int fin1 = r[max_score + 1];  // final D or M stroke
-      if (fin1 & 0x3FFF) {
-        runs_op.push_back(OPC[(fin1 >> 14) & 3]);
-        runs_len.push_back(fin1 & 0x3FFF);
-      }
-      for (int s = 0; s <= max_score; ++s) {
-        int rec = r[s];
-        if (!rec) continue;
-        int op = (rec >> 14) & 3;
-        if (op) {
-          runs_op.push_back(OPC[op]);
-          runs_len.push_back(1);
-        }
-        int mlen = rec & 0x3FFF;
-        if (mlen) {
-          runs_op.push_back('M');
-          runs_len.push_back(mlen);
-        }
-        int glen = (rec >> 16) & 0x7FF;
-        if (glen) {
-          runs_op.push_back((rec >> 27) & 1 ? 'D' : 'I');
-          runs_len.push_back(glen);
-        }
-      }
-      long total = 0;
-      for (int len : runs_len) total += len;
-      int pos = max_operations - (int)total;
-      if (pos < 0) pos = 0;
-      if (pos > max_ops) pos = max_ops;
-      begin = pos;
-      for (size_t j = 0; j < runs_op.size(); ++j) {
-        int len = runs_len[j];
-        if (len > max_ops - pos) len = max_ops - pos;
-        std::memset(o + pos, runs_op[j], (size_t)len);
-        pos += len;
-      }
-    }
-    begin_off[i] = begin;
-    end_off[i] = max_operations;
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Output emission — byte-identical to the reference host
 // (ref: host.c:340 "%d, %d, \n" + edit_cigar_print host.c:69-89).
 // Returns bytes written, or -1 on error.
 // ---------------------------------------------------------------------------
 
-// Decimal formatter (manual): fprintf per token measured ~1.1 M
-// pairs/s/core with CIGARs (PERFNOTES.md §5) — the emit stage needs
-// ~20 host cores per chip at that rate.  Bytes are identical to the
-// "%d"-based version.
+// Decimal formatter (manual, in place of fprintf per token).  Bytes are
+// identical to the "%d"-based version.
 static inline char *fmt_i32(char *p, int32_t v) {
   uint32_t u = (uint32_t)v;
   if (v < 0) {
@@ -1269,114 +1131,4 @@ extern "C" long aim_emit_output(const char *path, const int32_t *idx,
   long sz = std::ftell(f);
   std::fclose(f);
   return sz;
-}
-
-
-// ---------------------------------------------------------------------------
-// 2-bit sequence packing for H2D uploads (see ops/wfa_pallas.pack_seqs).
-// Returns 1 and fills out_p/out_t ([n, Rp/4] bytes, 4 bases per byte,
-// little-endian 2-bit fields) when the COMBINED alphabet has <= 4 nonzero
-// symbols and byte 0 never occurs inside a valid region; else returns 0.
-// One shared injective recode preserves alignment semantics (the kernels
-// only compare pattern bytes against text bytes for equality).
-// ---------------------------------------------------------------------------
-
-// SWAR row packer for the canonical DNA alphabet: recode (c >> 1) & 3
-// (A->0, C->1, T->2, G->3 — injective over {A,C,G,T}; padding byte 0
-// -> 0, like lut[0]).  Codes are opaque to every consumer — kernels
-// compare pattern codes with text codes for equality only, and both
-// arrays come from this same call — so the assignment may differ from
-// the generic LUT path's sorted order.
-static inline void pack_row_acgt(const uint8_t *src, uint8_t *dst,
-                                 int read_size, int rb) {
-  const int full = read_size / 4;  // whole 4-byte groups inside the row
-  for (int b = 0; b < full && b < rb; ++b) {
-    uint32_t x;
-    std::memcpy(&x, src + 4 * b, 4);
-    const uint32_t y = (x >> 1) & 0x03030303u;
-    dst[b] = (uint8_t)((y | (y >> 6) | (y >> 12) | (y >> 18)) & 0xFFu);
-  }
-  for (int b = full; b < rb; ++b) {
-    uint8_t v = 0;
-    for (int q = 0; q < 4; ++q) {
-      const int j = 4 * b + q;
-      if (j < read_size) v |= (uint8_t)(((src[j] >> 1) & 3) << (2 * q));
-    }
-    dst[b] = v;
-  }
-}
-
-extern "C" int aim_pack_seqs(const uint8_t *pats, const uint8_t *txts,
-                             const int32_t *plens, const int32_t *tlens,
-                             long n, int read_size, int rp,
-                             uint8_t *out_p, uint8_t *out_t) {
-  // Fast scan: is every valid byte in {A,C,G,T}?  Branch-free
-  // accumulate (auto-vectorizes under -O3); rejects interior NULs for
-  // free (0 is not in the set).  The canonical datasets always take
-  // this path — the generic seen[]/LUT scan below only runs for
-  // non-ACGT alphabets.
-  uint8_t nonacgt = 0;
-  for (long i = 0; i < n; ++i) {
-    const uint8_t *p = pats + i * read_size;
-    const uint8_t *t = txts + i * read_size;
-    const int pl = plens[i], tl = tlens[i];
-    for (int j = 0; j < pl; ++j) {
-      const uint8_t c = p[j];
-      nonacgt |= (uint8_t)(!(c == 'A' || c == 'C' || c == 'G' || c == 'T'));
-    }
-    for (int j = 0; j < tl; ++j) {
-      const uint8_t c = t[j];
-      nonacgt |= (uint8_t)(!(c == 'A' || c == 'C' || c == 'G' || c == 'T'));
-    }
-  }
-  const int rb = rp / 4;
-  if (!nonacgt) {
-    for (long i = 0; i < n; ++i) {
-      pack_row_acgt(pats + i * read_size, out_p + i * rb, read_size, rb);
-      pack_row_acgt(txts + i * read_size, out_t + i * rb, read_size, rb);
-    }
-    return 1;
-  }
-
-  bool seen[256] = {false};
-  for (long i = 0; i < n; ++i) {
-    const uint8_t *p = pats + i * read_size;
-    const uint8_t *t = txts + i * read_size;
-    const int pl = plens[i], tl = tlens[i];
-    for (int j = 0; j < pl; ++j) {
-      if (!p[j]) return 0;  // interior NUL would alias the padding code
-      seen[p[j]] = true;
-    }
-    for (int j = 0; j < tl; ++j) {
-      if (!t[j]) return 0;
-      seen[t[j]] = true;
-    }
-  }
-  uint8_t lut[256] = {0};
-  int nsym = 0;
-  for (int c = 1; c < 256; ++c) {
-    if (seen[c]) {
-      if (nsym == 4) return 0;
-      lut[c] = (uint8_t)nsym++;
-    }
-  }
-  for (long i = 0; i < n; ++i) {
-    const uint8_t *p = pats + i * read_size;
-    const uint8_t *t = txts + i * read_size;
-    uint8_t *op = out_p + i * rb;
-    uint8_t *ot = out_t + i * rb;
-    for (int b = 0; b < rb; ++b) {
-      uint8_t vp = 0, vt = 0;
-      for (int q = 0; q < 4; ++q) {
-        const int j = 4 * b + q;
-        if (j < read_size) {
-          vp |= (uint8_t)(lut[p[j]] << (2 * q));
-          vt |= (uint8_t)(lut[t[j]] << (2 * q));
-        }
-      }
-      op[b] = vp;
-      ot[b] = vt;
-    }
-  }
-  return 1;
 }

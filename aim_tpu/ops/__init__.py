@@ -1,7 +1,3 @@
-"""TPU compute kernels: vectorized batch DP over pair batches.
-
-Two backends per algorithm with identical semantics:
-  * ``*_xla.py``  — pure jax.numpy, runs on any backend (CPU tests,
-    sharding dry-runs, non-TPU fallback);
-  * ``*_pallas.py`` — hand-written Pallas TPU kernels (the perf path).
-"""
+"""Device kernels: vectorized batch DP over pair batches, one plain-XLA
+(jax.numpy / lax) implementation per algorithm.  GenASM runs on the NW
+kernel (see nw_xla)."""

@@ -6,7 +6,7 @@ import jax
 import jax.numpy as jnp
 
 
-def min_plus_scan(z: jnp.ndarray, slope: int, width: int) -> jnp.ndarray:
+def min_plus_scan(z: jnp.ndarray, slope: int) -> jnp.ndarray:
     """Min-plus prefix scan along the last axis:
 
         out[v] = min_{j <= v} ( z[j] + (v - j) * slope )
@@ -15,26 +15,11 @@ def min_plus_scan(z: jnp.ndarray, slope: int, width: int) -> jnp.ndarray:
     ``cell[v] = min(indep[v], cell[v-1] + gap)`` (ref: NW/DPU-WRAM/dpu/nw.c:139,
     SWG/DPU-WRAM/dpu/swg.c:151-153): substituting the recurrence yields
     exactly this min-plus convolution, with identical integer results (min
-    and + commute associatively; no reassociation error).
-
-    Implemented as log2(width) shift+min steps — maps to VPU lane shifts.
+    and + commute associatively; no reassociation error).  Subtracting the
+    ramp turns it into a plain cumulative minimum.
     """
     ramp = jax.lax.broadcasted_iota(jnp.int32, z.shape, z.ndim - 1) * slope
-    x = z - ramp
-    # Sentinel above any live DP value, but far below 2**29: this runtime's
-    # dispatch path degrades ~500x for programs that materialize int32
-    # buffers with values >= ~2**29 (measured; threshold between 2**28 and
-    # 2**30), so every device-side "infinity" in this codebase stays <= 2**24.
-    big = jnp.int32(2 ** 24)
-    shift = 1
-    while shift < width:
-        shifted = jnp.roll(x, shift, axis=-1)
-        # Mask the wrap-around: positions < shift keep their own value.
-        pos = jax.lax.broadcasted_iota(jnp.int32, z.shape, z.ndim - 1)
-        shifted = jnp.where(pos >= shift, shifted, big)
-        x = jnp.minimum(x, shifted)
-        shift *= 2
-    return x + ramp
+    return jax.lax.cummin(z - ramp, axis=z.ndim - 1) + ramp
 
 
 def shift_right_lanes(x: jnp.ndarray, fill) -> jnp.ndarray:
@@ -44,59 +29,6 @@ def shift_right_lanes(x: jnp.ndarray, fill) -> jnp.ndarray:
     return jnp.where(pos >= 1, rolled, fill)
 
 
-def pack_seqs(pats, txts, plens, tlens, read_size: int):
-    """Host-side 2-bit packing of a [n, R] uint8 sequence pair batch.
-
-    Returns (packed_pats, packed_txts [n, Rp//4] u8, True) when the
-    COMBINED alphabet has <= 4 symbols (the DNA case — H2D bytes over this
-    relay are precious, PERFNOTES.md §2), else the inputs unchanged with
-    False.  One shared injective recode preserves alignment semantics:
-    the kernels only compare pattern bytes against text bytes for
-    equality.
-    """
-    import numpy as np
-    Rp = -(-(read_size + 2) // 8) * 8
-    try:
-        from aim_tpu import native
-        if native.available():
-            return native.pack_seqs(np.ascontiguousarray(pats, np.uint8),
-                                    np.ascontiguousarray(txts, np.uint8),
-                                    plens, tlens, Rp)
-    except Exception:
-        pass  # fall through to the numpy path
-    seen = np.zeros(256, bool)
-    seen[pats.reshape(-1)] = True
-    seen[txts.reshape(-1)] = True
-    syms = np.nonzero(seen)[0]
-    if seen[0]:
-        syms = syms[1:]  # byte 0 beyond the valid region is just padding
-    if len(syms) > 4:
-        return pats, txts, False
-    if seen[0]:
-        # Byte 0 may alias syms[0]'s code only if it never occurs INSIDE a
-        # valid region (positions < plen/tlen) — text-file parsing cannot
-        # produce interior NULs, but direct API callers could.
-        pos = np.arange(pats.shape[1])
-        if ((pats == 0) & (pos < np.asarray(plens)[:, None])).any() or \
-           ((txts == 0) & (pos < np.asarray(tlens)[:, None])).any():
-            return pats, txts, False
-    lut = np.zeros(256, np.uint8)
-    lut[syms] = np.arange(len(syms), dtype=np.uint8)
-
-    def one(arr):
-        codes = np.zeros((arr.shape[0], Rp), np.uint8)
-        codes[:, :arr.shape[1]] = lut[arr]
-        pk = (codes[:, 0::4] | (codes[:, 1::4] << 2)
-              | (codes[:, 2::4] << 4) | (codes[:, 3::4] << 6))
-        return np.ascontiguousarray(pk)
-
-    return one(pats), one(txts), True
-
-
 def gather_lane(x: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
-    """Per-row lane gather: out[n] = x[n, idx[n]] for 2-D x.
-
-    One-hot multiply-reduce — XLA:TPU lowers take_along_axis to a serial
-    gather; this stays on the VPU."""
-    lanes = jax.lax.broadcasted_iota(jnp.int32, x.shape, 1)
-    return jnp.sum(jnp.where(lanes == idx[:, None], x, 0), axis=1)
+    """Per-row lane gather: out[n] = x[n, idx[n]] for 2-D x."""
+    return jnp.take_along_axis(x, idx[:, None], axis=1)[:, 0]

@@ -21,6 +21,15 @@ Exact reference semantics (ref: NW/DPU-WRAM/dpu/nw.c:109-153):
 Direction bits (when cfg.backtrace): uint8 per cell with the traceback
 tie-break priority D -> I -> diag / X-iff-equality baked in
 (ref: nw.c:76-94); walked on host by native.nw_traceback_bits.
+
+GenASM mode (cfg.algo == "genasm"): this framework's GenASM is clean
+bounded Levenshtein distance whose CIGAR is the NW walker's at unit costs
+(golden/genasm.py), so the same kernel serves it with
+  * mismatch = gap_i = gap_d = 1, whatever the config's cost fields say;
+  * no tape aliasing (a proper 2-D table: nothing is flagged);
+  * half-empty pairs scored plen + tlen (the tlen == 0 row-0 cell);
+  * distances above MAX_SCORE reported as MAX_SCORE + 1 (the caller
+    emits the default one-op CIGAR for those, as the host oracle does).
 """
 
 from __future__ import annotations
@@ -30,7 +39,7 @@ import functools
 import jax
 import jax.numpy as jnp
 
-from aim_tpu.config import AlignConfig
+from aim_tpu.config import ALGO_GENASM, AlignConfig
 from aim_tpu.ops.common import gather_lane, min_plus_scan, shift_right_lanes
 
 I32 = jnp.int32
@@ -51,13 +60,16 @@ def nw_forward(pats, txts, plens, tlens, *, cfg: AlignConfig):
     """
     R = cfg.read_size
     W = R + 1
-    gi, gd, x = cfg.gap_i, cfg.gap_d, cfg.mismatch
+    genasm = cfg.algo == ALGO_GENASM
+    gi, gd, x = (1, 1, 1) if genasm else (cfg.gap_i, cfg.gap_d, cfg.mismatch)
     n = pats.shape[0]
 
     plens = plens.astype(I32)
     tlens = tlens.astype(I32)
-    aliased = plens == tlens + 1  # the common tape-aliasing case
-    multi_alias = plens > tlens + 1  # needs exact-tape oracle
+    # tape aliasing: plen == tlen+1 is served here (the boundary chain),
+    # plen > tlen+1 by the exact-tape oracle; GenASM has neither
+    aliased = (plens == tlens + 1) & (not genasm)
+    multi_alias = (plens > tlens + 1) & (not genasm)
 
     lane = jax.lax.broadcasted_iota(I32, (n, W), 1)
     # pats_sh[:, v] = pattern[v-1]
@@ -83,7 +95,7 @@ def nw_forward(pats, txts, plens, tlens, *, cfg: AlignConfig):
         b_alias = jnp.where(h == 1, gi, gather_lane(prev, plens))
         col0 = jnp.where(aliased, b_alias, b_clean)
         z = jnp.where(lane == 0, col0[:, None], indep)
-        cur = min_plus_scan(z, gd, W)
+        cur = min_plus_scan(z, gd)
         # int16-range check on the live region (ref cells are int16).
         live = valid_lane & (h <= tlens)[:, None]
         overflow = overflow | jnp.any(live & (jnp.abs(cur) > INT16_MAX), axis=1)
@@ -99,8 +111,17 @@ def nw_forward(pats, txts, plens, tlens, *, cfg: AlignConfig):
             bits_row = jnp.zeros((n, 0), jnp.uint8)
         return (cur, score, overflow), bits_row
 
-    init = (row0, jnp.zeros(n, I32), jnp.zeros(n, bool))
+    # The reference's score is the last cell its loops wrote, so a
+    # half-empty pair scores 0 there; GenASM scores it plen + tlen (tlen
+    # == 0 never reaches h == tlens: its score is the row-0 cell).
+    score0 = jnp.where(tlens == 0, plens * gd, 0) if genasm \
+        else jnp.zeros(n, I32)
+    init = (row0, score0, jnp.zeros(n, bool))
     (_, scores, overflow), bits_rows = jax.lax.scan(step, init, jnp.arange(R))
+    if genasm:
+        scores = jnp.minimum(scores, cfg.max_score + 1)
+    else:
+        scores = jnp.where(plens == 0, 0, scores)
 
     out = {
         "scores": scores,
@@ -108,7 +129,7 @@ def nw_forward(pats, txts, plens, tlens, *, cfg: AlignConfig):
     }
     if cfg.backtrace:
         # bits_rows: [R, n, W] for h = 1..R; prepend an unused h=0 row,
-        # then pack 4 two-bit codes per byte (D2H bytes are precious).
+        # then pack 4 two-bit codes per byte (a quarter of the D2H bytes).
         bits = jnp.concatenate(
             [jnp.zeros((1, n, W), jnp.uint8), bits_rows], axis=0)
         bits = jnp.transpose(bits, (1, 0, 2))

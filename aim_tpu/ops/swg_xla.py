@@ -101,7 +101,7 @@ def swg_forward(pats, txts, plens, tlens, *, cfg: AlignConfig):
         z = jnp.where(lane == 0, d_b[:, None],
                       jnp.where(lane == 1, m_b[:, None] + go + ge,
                                 c_s + go + ge))
-        d_cur = min_plus_scan(z, ge, W)
+        d_cur = min_plus_scan(z, ge)
         m_cur = jnp.minimum(c, d_cur)
         m_cur = jnp.where(lane == 0, m_b[:, None], m_cur)
         live = valid_lane & (h <= tlens)[:, None]
@@ -123,13 +123,16 @@ def swg_forward(pats, txts, plens, tlens, *, cfg: AlignConfig):
 
     init = (m0, i0, d0, jnp.zeros(n, I32), jnp.zeros(n, bool))
     (_, _, _, scores, overflow), bits_rows = jax.lax.scan(step, init, jnp.arange(R))
+    # the reference's score is the last cell its loops wrote: 0 for a
+    # half-empty pair (tlen == 0 never reaches h == tlens)
+    scores = jnp.where(plens == 0, 0, scores)
 
     out = {
         "scores": scores,
         "needs_fallback": multi_alias | overflow,
     }
     if cfg.backtrace:
-        # Pack 2 four-bit codes per byte.
+        # Pack 2 four-bit codes per byte (half the D2H bytes).
         bits = jnp.concatenate(
             [jnp.zeros((1, n, W), jnp.uint8), bits_rows], axis=0)
         bits = jnp.transpose(bits, (1, 0, 2))

@@ -3,7 +3,7 @@ implementation.
 
 Vectorization: lanes = wavefront diagonals k (dense over [-S, S], physical
 lane = k + S), batch rows = pairs, one global score loop advanced in
-lock-step for the whole batch with per-pair done masks.  This is the TPU
+lock-step for the whole batch with per-pair done masks.  This is the batch
 shape of the reference's per-tasklet score loop
 (ref: WFA/DPU-MRAM/dpu/wfa.c:356-407).
 
@@ -14,10 +14,10 @@ Key device formulations:
     (v' = h'-k in [0,plen), h' in [0,tlen), pattern[v']==text[h']); the
     extended offset is simply NM[offset].  NM is built once per batch with
     a reverse cumulative-min — O(K*R) vector work replacing the serial loop.
-  * wavefront history is a dense [n, S+2, 3, K] int16 tensor in HBM plus
-    klo/khi/flags sidecars — the MRAM-tier layout (ref component store,
-    dpu_allocator_mram.c) without the serialization; the backtrace walks it
-    on host (native.wfa_backtrace_batch).
+  * wavefront history is a dense [n, S+2, 3, K] int16 tensor in device
+    memory plus klo/khi/flags sidecars — the MRAM-tier layout (ref
+    component store, dpu_allocator_mram.c) without the serialization; the
+    backtrace walks it on host (native.wfa_backtrace_batch).
   * all reference quirks preserved: OFFSET_NULL = INT16_MIN/2 arithmetic,
     the live ``-10`` defaults of skipped I/D branches (wfa.c:243,255),
     del = max(del_g, del_d) with NO both-null special case (wfa.c:262),
@@ -34,21 +34,20 @@ import jax
 import jax.numpy as jnp
 
 from aim_tpu.config import AlignConfig
+from aim_tpu.ops.common import gather_lane
 
 I16 = jnp.int16
 I32 = jnp.int32
 NULL16 = jnp.int16(-16384)
-# Device-side "infinity": must stay <= 2**24 (values >= ~2**29 in any
-# materialized buffer flip this runtime into a ~500x slower dispatch mode —
-# measured; see ops/common.py).
-BIG = jnp.int32(2 ** 20)
+BIG = jnp.int32(2 ** 20)  # above any offset or distance (R < 32767)
 
 
 def build_nm_table(pats, txts, plens, tlens, smax: int, read_size: int):
     """NM[n, K, h] = first mismatch position >= h on diagonal k - smax.
 
     h ranges over [0, R]; NM values are in [0, R] (position R = sentinel,
-    can never be exceeded since h' < tlen <= R fails first).
+    can never be exceeded since h' < tlen <= R fails first).  Built in
+    int16 end to end (R < 32767): the table is the step's largest buffer.
     """
     n, R = pats.shape
     K = 2 * smax + 1
@@ -56,18 +55,21 @@ def build_nm_table(pats, txts, plens, tlens, smax: int, read_size: int):
     h = jnp.arange(R, dtype=I32)                    # [R]
     v = h[None, :] - k[:, None]                     # [K, R]
     vc = jnp.clip(v, 0, R - 1)
-    pg = jnp.take(pats.astype(I32), vc.reshape(-1), axis=1)
-    pg = pg.reshape(n, K, R)
+    pg = jnp.take(pats, vc.reshape(-1), axis=1).reshape(n, K, R)
     ok = (v[None] >= 0) & (v[None] < plens[:, None, None]) \
         & (h[None, None] < tlens[:, None, None])
-    match = ok & (pg == txts.astype(I32)[:, None, :])
+    match = ok & (pg == txts[:, None, :])
     # R as the match-fill: since R > any mismatch position h, the reverse
-    # cumulative-min yields the first mismatch position (or R if none) with
-    # no post-clip and no large sentinel values (see BIG note above).
-    arr = jnp.where(match, R, h[None, None])
-    arr = jnp.concatenate([arr, jnp.full((n, K, 1), R, I32)], axis=2)
-    nm = jax.lax.associative_scan(jnp.minimum, arr, reverse=True, axis=2)
-    return nm.astype(I16)                           # [n, K, R+1]
+    # cumulative-min yields the first mismatch position (or R if none).
+    arr = jnp.where(match, I16(R), h.astype(I16)[None, None])
+    arr = jnp.concatenate([arr, jnp.full((n, K, 1), R, I16)], axis=2)
+    return jax.lax.cummin(arr, axis=2, reverse=True)  # [n, K, R+1]
+
+
+def extend(nm, off):
+    """ext[n, k] = nm[n, k, off[n, k]]: the furthest match-run end from
+    each diagonal's offset (off in [0, R])."""
+    return jnp.take_along_axis(nm, off[:, :, None], axis=2)[:, :, 0]
 
 
 @functools.partial(jax.jit, static_argnames=("cfg",))
@@ -124,14 +126,9 @@ def wfa_forward(pats, txts, plens, tlens, *, cfg: AlignConfig):
         inr = (kl[:, None] <= kvec) & (kvec <= kh[:, None])
 
         # ---- extend ----
-        # One-hot multiply-reduce instead of a gather: XLA:TPU lowers
-        # take_along_axis to a serial gather loop; this stays on the VPU.
         offi = m.astype(I32)
         do_ext = active[:, None] & ~m_null[:, None] & inr & (offi >= 0)
-        idx = jnp.clip(offi, 0, R)
-        h_iota = jax.lax.broadcasted_iota(I32, (1, 1, R + 1), 2)
-        onehot = (h_iota == idx[:, :, None])
-        ext = jnp.sum(jnp.where(onehot, nm.astype(I32), 0), axis=2)
+        ext = extend(nm, jnp.clip(offi, 0, R)).astype(I32)
         offi = jnp.where(do_ext, ext, offi)
         m = offi.astype(I16)
         hm = jax.lax.dynamic_update_index_in_dim(hm, m, s, 1)
@@ -168,9 +165,7 @@ def wfa_forward(pats, txts, plens, tlens, *, cfg: AlignConfig):
             inr = (kl[:, None] <= kvec) & (kvec <= kh[:, None])
 
         # ---- end reached ----
-        akp = jnp.clip(ak + smax, 0, K - 1)
-        ak_onehot = jnp.arange(K)[None, :] == akp[:, None]
-        m_at_ak = jnp.sum(jnp.where(ak_onehot, offi, 0), axis=1)
+        m_at_ak = gather_lane(offi, jnp.clip(ak + smax, 0, K - 1))
         er = active & ~m_null & (kl <= ak) & (ak <= kh) & (m_at_ak >= tlens)
         scores = jnp.where(er, s, scores)
         active = active & ~er
@@ -210,8 +205,7 @@ def wfa_forward(pats, txts, plens, tlens, *, cfg: AlignConfig):
 
         def sl(w):  # value at lane k-1
             r = jnp.roll(w, 1, axis=1)
-            return r.at[:, 0].set(NULL16) if False else \
-                jnp.where(jnp.arange(K) >= 1, r, NULL16)
+            return jnp.where(jnp.arange(K) >= 1, r, NULL16)
 
         def sr(w):  # value at lane k+1
             r = jnp.roll(w, -1, axis=1)
@@ -264,7 +258,7 @@ def wfa_forward(pats, txts, plens, tlens, *, cfg: AlignConfig):
 
     out = {"scores": scores}
     if cfg.backtrace:
-        # Pack into two transfer arrays (D2H round trips are expensive):
+        # Pack into two transfer arrays (two D2H copies instead of six):
         # hist [n, S+1, 3K] i16 (m | i | d along lanes) and meta
         # [n, S+1, 3] i16 (klo | khi | flags — all fit int16).
         s1 = smax + 1

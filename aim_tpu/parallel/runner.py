@@ -5,7 +5,8 @@ emits results in the same order (ref: host.c:191-209, 332-353).  The
 multi-host analogue: each process parses only its contiguous pair range
 (global idx = file order preserved), aligns it on its local devices, writes
 an output part, and process 0 concatenates the parts — an ordered gather
-over the filesystem rather than ICI, since the result stream is bulk text.
+over the filesystem rather than a collective, since the result stream is
+bulk text.
 Device-level (intra-host) parallelism uses the pairs mesh (see mesh.py).
 """
 
@@ -23,14 +24,22 @@ from aim_tpu.parallel.mesh import make_mesh, pair_sharding, shard_range
 
 
 def initialize_distributed(coordinator_address=None, num_processes=None,
-                           process_id=None):
-    """jax.distributed bootstrap (DCN across hosts, ICI within a slice)."""
+                           process_id=None, local_device_ids=None):
+    """jax.distributed bootstrap.  Nothing tells JAX of a cluster, so the
+    coordinator ("host:port"), process count and id are always explicit.
+
+    One process per card on a shared host: pass that card's index as
+    local_device_ids (or start the process with CUDA_VISIBLE_DEVICES set
+    to it).  A GPU process reserves most of the memory of every card it
+    sees when it starts, so two processes that both see a card cannot
+    both run on it."""
     import jax
     if num_processes is None or num_processes <= 1:
         return 0, 1
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,
-                               process_id=process_id)
+                               process_id=process_id,
+                               local_device_ids=local_device_ids)
     return jax.process_index(), jax.process_count()
 
 

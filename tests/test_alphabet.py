@@ -1,13 +1,6 @@
-"""Alphabet coverage: the NW/SWG device tiers (VMEM banded AND
-HBM-streamed), the WFA VMEM kernel (int32 symbol planes compared by
-equality), and the GenASM long tier (a streamed-NW instance) all
-compare raw bytes, so they serve ANY byte alphabet — 2-bit packing is
-only a transport optimization there.  Only the WFA LONG kernel
-(packed-word XOR extend) and the GenASM VMEM kernel (2-bit PM masks)
-require <=4 symbols; api.align re-dispatches those configs with
-packed_ok=False so a byte-comparing tier (or the exact XLA/host path)
-serves instead.  The reference compares raw chars (e.g.
-NW/DPU-WRAM/dpu/nw.c:76-94), so non-ACGT inputs are reference-parity,
+"""Alphabet coverage: every device tier compares raw bytes for equality,
+as the reference does (e.g. NW/DPU-WRAM/dpu/nw.c:76-94), so any byte
+alphabet is served on device — non-ACGT inputs are reference parity,
 not an extension."""
 
 import numpy as np
@@ -15,218 +8,30 @@ import pytest
 
 import aim_tpu.native as nat
 from aim_tpu.config import AlignConfig, derive_config
-from tests.util import cigar_of
+from tests.test_kernels_xla import ALGOS, assert_matches_oracle
+from tests.util import pack, random_pairs
+
+ALPHABETS = {"five": "ACGTN", "twenty": "ACDEFGHIKLMNPQRSTVWY"}
 
 
-def _five_symbol_pairs(rng, n, R, lo, hi, err):
-    bases = np.frombuffer(b"ACGTN", np.uint8)
-    pats = np.zeros((n, R), np.uint8)
-    txts = np.zeros((n, R), np.uint8)
-    pl = np.zeros(n, np.int32)
-    tl = np.zeros(n, np.int32)
-    for i in range(n):
-        lp = int(rng.integers(lo, hi))
-        lt = lp + int(rng.integers(-1, 2))
-        if lp > lt + 1:
-            lp = lt + 1
-        p = bases[rng.integers(0, 5, lp)]
-        t = p[:min(lp, lt)].copy()
-        if len(t) < lt:
-            t = np.concatenate([t, bases[rng.integers(0, 5, lt - len(t))]])
-        mut = rng.random(len(t)) < err
-        t = np.where(mut, bases[rng.integers(0, 5, len(t))],
-                     t).astype(np.uint8)
-        pats[i, :lp] = p
-        txts[i, :lt] = t
-        pl[i], tl[i] = lp, lt
-    # really uses the 5th symbol
-    assert (pats == ord("N")).any()
-    return pats, txts, pl, tl
-
-
-def _oracle(algo, cfg, pats, txts, pl, tl):
-    if algo == "nw":
-        return nat.nw_align(pats, txts, pl, tl, mismatch=cfg.mismatch,
-                            gap_i=cfg.gap_i, gap_d=cfg.gap_d,
-                            backtrace=True)
-    return nat.swg_align(pats, txts, pl, tl, match=cfg.match,
-                         mismatch=cfg.mismatch, gap_o=cfg.gap_o,
-                         gap_e=cfg.gap_e, max_score=cfg.max_score,
-                         cell_width=cfg.cell_width, backtrace=True)
-
-
-def _check(algo, cfg, fn, pats, txts, pl, tl, max_flag_frac):
-    out = fn(pats, txts, pl, tl, cfg=cfg, interpret=True, packed=False)
-    pr = np.asarray(out["packed_runs"])
-    sc = pr[:, 1].astype(np.int32)
-    fb = ((pr[:, 0].astype(np.int32) >> 8) & 1).astype(bool)
-    assert fb.mean() <= max_flag_frac
-    want, wops, wb, we = _oracle(algo, cfg, pats, txts, pl, tl)
-    good = ~fb
-    assert good.any()
-    np.testing.assert_array_equal(sc[good], want[good])
-    o, b, e = nat.wfa_runs_to_ops(pr, sc, pl, tl, max_score=(1 << 30),
-                                  max_ops=2 * cfg.read_size)
-    for i in range(len(pl)):
-        if good[i]:
-            assert cigar_of(o[i], b[i], e[i]) == \
-                cigar_of(wops[i], wb[i], we[i]), i
-
-
-@pytest.mark.parametrize("algo", ["nw", "swg"])
-def test_vmem_tier_five_symbol_alphabet(algo):
-    from aim_tpu.ops.nw_pallas import nw_forward_pallas
-    from aim_tpu.ops.swg_pallas import swg_forward_pallas
-    rng = np.random.default_rng(23)
-    cfg = derive_config(algo, 100, 0.01, backtrace=True)
-    pats, txts, pl, tl = _five_symbol_pairs(rng, 16, cfg.read_size,
-                                            60, 100, 0.02)
-    fn = nw_forward_pallas if algo == "nw" else swg_forward_pallas
-    _check(algo, cfg, fn, pats, txts, pl, tl, max_flag_frac=0.6)
-
-
-@pytest.mark.parametrize("algo", ["nw", "swg"])
-def test_streamed_tier_five_symbol_alphabet(algo):
-    from aim_tpu.ops.nwswg_pallas_long import nwswg_forward_pallas_long
-    rng = np.random.default_rng(29)
-    R = 96
-    cfg = (AlignConfig(algo="nw", read_size=R, max_score=60,
-                       backtrace=True, gap_i=2, gap_d=3, mismatch=3,
-                       variant="hbm") if algo == "nw" else
-           AlignConfig(algo="swg", read_size=R, max_score=400,
-                       backtrace=True, match=0, mismatch=3, gap_o=4,
-                       gap_e=1, variant="hbm"))
-    pats, txts, pl, tl = _five_symbol_pairs(rng, 16, R, 50, 90, 0.02)
-    # the tiny geometry flags conservatively (band envelope vs R=96);
-    # the assertion that matters is exactness on the unflagged pairs
-    _check(algo, cfg, nwswg_forward_pallas_long, pats, txts, pl, tl,
-           max_flag_frac=0.6)
-
-
-def test_wfa_vmem_tier_five_symbol_alphabet():
-    """The WFA v2 kernel unpacks symbols into int32 planes and compares
-    by equality — exact on any byte alphabet with packed=False."""
-    from aim_tpu.ops.wfa_pallas2 import vmem_fit2, wfa_forward_pallas2
-    rng = np.random.default_rng(31)
-    R = 48
-    cfg = AlignConfig(algo="wfa", read_size=R, max_score=24,
-                      backtrace=True, mismatch=4, gap_o=6, gap_e=2)
-    assert vmem_fit2(cfg)
-    pats, txts, pl, tl = _five_symbol_pairs(rng, 32, R, 24, 46, 0.04)
-    out = wfa_forward_pallas2(pats, txts, pl, tl, cfg=cfg, interpret=True,
-                              packed=False)
-    rec = np.asarray(out["step_records"])
-    sc, o, b, e = nat.wfa_steps_to_ops(rec, pl, tl, max_score=cfg.max_score,
-                                       max_ops=2 * R)
-    want, wo, wb, we = nat.wfa_align(pats, txts, pl, tl,
-                                     mismatch=4, gap_o=6, gap_e=2,
-                                     max_score=24, adaptive=False,
-                                     backtrace=True)
-    np.testing.assert_array_equal(sc, want)
-    for i in range(len(pl)):
-        if want[i] <= cfg.max_score:
-            assert cigar_of(o[i], b[i], e[i]) == \
-                cigar_of(wo[i], wb[i], we[i]), i
-
-
-def test_genasm_long_tier_five_symbol_alphabet():
-    """The GenASM long tier is a streamed-NW instance (byte compare):
-    exact on any alphabet with packed=False, so >4-symbol batches stay
-    on-device instead of falling to the host oracle."""
-    from aim_tpu.ops.genasm_long import (genasm_forward_pallas_long,
-                                         long_fit_genasm)
-    rng = np.random.default_rng(37)
-    R, K = 96, 40
-    cfg = AlignConfig(algo="genasm", read_size=R, max_score=K,
-                      backtrace=True)
-    assert long_fit_genasm(cfg)
-    pats, txts, pl, tl = _five_symbol_pairs(rng, 16, R, 50, 90, 0.02)
-    out = genasm_forward_pallas_long(pats, txts, pl, tl, cfg=cfg,
-                                     interpret=True, packed=False)
-    pr = np.asarray(out["packed_runs"])
-    sc = pr[:, 1].astype(np.int32)
-    fb = ((pr[:, 0].astype(np.int32) >> 8) & 1).astype(bool)
-    assert fb.mean() <= 0.5
-    want, wo, wb, we = nat.genasm_align(pats, txts, pl, tl, max_score=K,
-                                        backtrace=True)
-    good = ~fb
-    assert good.any()
-    np.testing.assert_array_equal(sc[good], want[good])
-    o, b, e = nat.wfa_runs_to_ops(pr, sc, pl, tl, max_score=(1 << 30),
-                                  max_ops=2 * R)
-    for i in range(len(pl)):
-        if good[i] and want[i] <= K:
-            assert cigar_of(o[i], b[i], e[i]) == \
-                cigar_of(wo[i], wb[i], we[i]), i
-
-
-def test_dispatch_packed_ok_reroutes():
-    """forward_fn(cfg, packed_ok=False) must skip packing-requiring
-    tiers: the GenASM VMEM config falls to the byte-comparing long
-    tier, the WFA long config to the byte-comparing (3-byte-word)
-    variant of the same kernel (VERDICT r3 item 3)."""
-    from aim_tpu.ops import pallas_kernels
-    gcfg = AlignConfig(algo="genasm", read_size=60, max_score=10,
-                       backtrace=True)
-    fn = pallas_kernels.forward_fn(gcfg)
-    assert fn is not None and getattr(fn, "requires_packed", False)
-    fn2 = pallas_kernels.forward_fn(gcfg, packed_ok=False)
-    assert fn2 is not None and not getattr(fn2, "requires_packed", False)
-    assert getattr(fn2, "out_key", None) == "packed_runs"
-
-    wcfg = AlignConfig(algo="wfa", read_size=2000, max_score=500,
-                       backtrace=True, mismatch=4, gap_o=6, gap_e=2,
-                       variant="hbm")
-    fnw = pallas_kernels.forward_fn(wcfg)
-    assert fnw is not None and getattr(fnw, "requires_packed", False)
-    fnb = pallas_kernels.forward_fn(wcfg, packed_ok=False)
-    assert fnb is not None and not getattr(fnb, "requires_packed", False)
-
-
-def test_wfa_long_tier_twenty_symbol_alphabet():
-    """The WFA long kernel's byte-comparing extend (3-byte words): a
-    20-symbol batch beyond the VMEM tier stays on-device and matches the
-    oracle exactly — the reference kernels compare raw bytes everywhere
-    (ref: WFA/DPU-MRAM/dpu/wfa.c:193-215), so this closes the last
-    alphabet-coverage gap (VERDICT r3 item 3)."""
-    from aim_tpu.ops.wfa_pallas_long import (long_fit,
-                                             wfa_forward_pallas_long_bytes)
-    rng = np.random.default_rng(41)
-    cfg = derive_config("wfa", 300, 0.02, backtrace=True, adaptive=True,
-                        variant="hbm")
-    assert long_fit(cfg, bytes_mode=True)
-    bases = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8)
-    n, l = 16, 300
-    pats = np.zeros((n, cfg.read_size), np.uint8)
-    pats[:, :l] = bases[rng.integers(0, 20, (n, l))]
-    txts = pats.copy()
-    mut = rng.random((n, l)) < 0.02
-    txts[:, :l] = np.where(mut, bases[rng.integers(0, 20, (n, l))],
-                           txts[:, :l])
-    pl = np.full(n, l, np.int32)
-    tl = np.full(n, l, np.int32)
-    out = wfa_forward_pallas_long_bytes(pats, txts, pl, tl, cfg=cfg,
-                                        interpret=True)
-    recs = np.asarray(out["step_records"])
-    sc, o, b, e = nat.wfa_steps_to_ops(recs, pl, tl,
-                                       max_score=cfg.max_score,
-                                       max_ops=2 * cfg.read_size)
-    want, wo, wb, we = nat.wfa_align(pats, txts, pl, tl,
-                                     mismatch=cfg.mismatch,
-                                     gap_o=cfg.gap_o, gap_e=cfg.gap_e,
-                                     max_score=cfg.max_score,
-                                     adaptive=True, backtrace=True)
-    np.testing.assert_array_equal(sc, want)
-    for i in range(n):
-        if want[i] <= cfg.max_score:
-            assert cigar_of(o[i], b[i], e[i]) == \
-                cigar_of(wo[i], wb[i], we[i]), i
+@pytest.mark.parametrize("alphabet", sorted(ALPHABETS))
+@pytest.mark.parametrize("name", ["genasm", "nw", "swg", "wfa-adaptive"])
+def test_api_alphabet_matches_oracle(name, alphabet):
+    symbols = ALPHABETS[alphabet]
+    pairs = random_pairs(seed=47, n=64, max_len=28, alphabet=symbols)
+    pats, txts, pl, tl = pack(pairs, 32)
+    used = set(np.unique(np.concatenate([pats[pats > 0], txts[txts > 0]])))
+    assert len(used) > 4 and used <= set(symbols.encode())
+    from aim_tpu.api import align
+    cfg = AlignConfig(read_size=32, backtrace=True, batch_pairs=64,
+                      **ALGOS[name])
+    res = align(pats, txts, pl, tl, cfg)
+    assert_matches_oracle(res, cfg, pats, txts, pl, tl)
 
 
 def test_api_long_wfa_twenty_symbol_end_to_end():
-    """api.align on a >4-symbol long-read WFA batch: the re-dispatch
-    with packed_ok=False must land on the byte-mode long kernel (or the
-    XLA tier off-TPU) and stay exact end-to-end."""
+    """api.align on a >4-symbol long-read WFA batch stays exact end to
+    end."""
     from aim_tpu.api import align
     rng = np.random.default_rng(43)
     cfg = derive_config("wfa", 300, 0.02, backtrace=True, adaptive=True,

@@ -49,7 +49,7 @@ def _oracle_out(tmp, algo, pair_file, n, cfg_kw, out_name):
 def test_cli_byte_identical(tmp_path, pair_file, algo, extra):
     out = str(tmp_path / f"{algo}.out")
     rc = main([algo, "-i", pair_file, "-o", out, "-l", "20", "-e", "0.05",
-               "-n", "40", "-b", "--backend", "xla", "-q"] + extra)
+               "-n", "40", "-b", "-q"] + extra)
     assert rc == 0
     from aim_tpu.cli import build_parser, config_from_args
     args = build_parser().parse_args(
@@ -65,7 +65,7 @@ def test_cli_byte_identical(tmp_path, pair_file, algo, extra):
 def test_cli_score_only(tmp_path, pair_file):
     out = str(tmp_path / "scores.out")
     rc = main(["wfa", "-i", pair_file, "-o", out, "-l", "20", "-e", "0.05",
-               "-n", "40", "--backend", "xla", "-q"])
+               "-n", "40", "-q"])
     assert rc == 0
     lines = open(out).read().splitlines()
     assert len(lines) == 40
@@ -99,7 +99,7 @@ def test_cli_rejects_fewer_pairs_than_devices(tmp_path, pair_file, capsys):
     """ref: host.c:180-184 exits when total reads <= NR_DPUS."""
     out = str(tmp_path / "x.out")
     rc = main(["wfa", "-i", pair_file, "-o", out, "-l", "20", "-e", "0.05",
-               "-n", "4", "-b", "--backend", "xla", "-q", "-d", "8"])
+               "-n", "4", "-b", "-q", "-d", "8"])
     assert rc == 1
     assert "Allocated DPUs more than needed" in capsys.readouterr().out
 
@@ -117,23 +117,47 @@ def test_memory_batch_cap_scales_with_budget():
 def test_cli_energy_estimate(tmp_path, pair_file, capsys):
     out = str(tmp_path / "e.out")
     rc = main(["wfa", "-i", pair_file, "-o", out, "-l", "20", "-e", "0.05",
-               "-n", "40", "--backend", "xla", "--energy",
+               "-n", "40", "--energy",
                "--device-log", str(tmp_path / "dev.log")])
     assert rc == 0
-    assert "TPU Kernel Energy (J, estimated):" in capsys.readouterr().out
-    assert "energy_est_J=" in open(tmp_path / "dev.log").read()
+    from aim_tpu.api import card_power_limit_w
+    out = capsys.readouterr().out
+    assert "Device kernel energy (J, estimated at the card's power limit):" \
+        in out
+    log = open(tmp_path / "dev.log").read()
+    assert "energy_est_J=" in log
+    if card_power_limit_w() is None:
+        # no wattage is assumed when the card's limit cannot be read
+        assert "not available" in out and "energy_est_J=n/a" in log
 
 
 @pytest.mark.slow
 def test_cli_profile_trace(tmp_path, pair_file):
     """--profile must produce a jax.profiler trace dir (SURVEY §5.1: the
     reference's timing/energy probes -> TensorBoard-loadable traces).
-    Slow-gated: trace collection takes ~70 s on this runtime."""
+    Slow-gated: trace collection takes tens of seconds on the CPU."""
     import os
     out = str(tmp_path / "p.out")
     prof = str(tmp_path / "trace")
     rc = main(["wfa", "-i", pair_file, "-o", out, "-l", "20", "-e", "0.05",
-               "-n", "40", "--backend", "xla", "-q", "--profile", prof])
+               "-n", "40", "-q", "--profile", prof])
     assert rc == 0
     found = [os.path.join(r, f) for r, _, fs in os.walk(prof) for f in fs]
     assert found, "profiler trace directory is empty"
+
+
+@pytest.mark.parametrize("env", ["set", "unset"])
+def test_compile_cache_dir_rule(env, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR wins when set; otherwise a fixed path in
+    the checkout (the path is part of the cache key)."""
+    import os
+    import jax
+    from aim_tpu.api import compile_cache_dir
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if env == "set":
+        assert compile_cache_dir({"JAX_COMPILATION_CACHE_DIR":
+                                  str(tmp_path)}) == str(tmp_path)
+    else:
+        assert compile_cache_dir({}) == os.path.join(repo, ".jax_cache")
+    # this process follows the same rule
+    assert jax.config.jax_compilation_cache_dir == compile_cache_dir()

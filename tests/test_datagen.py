@@ -1,7 +1,6 @@
 """The in-repo data layer (aim_tpu.datagen + `aim-tpu gen`): generator
 semantics, pair-file grammar round-trip through the native parser, and
-the checked-in sample's integrity (VERDICT r3 item 6; the generator
-mirrors the WFA repo tool the reference points at, Datasets/README.md:
+the checked-in sample's integrity (the generator mirrors the WFA repo tool the reference points at, Datasets/README.md:
 18-26)."""
 
 import math

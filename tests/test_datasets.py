@@ -1,7 +1,7 @@
 """Equality on the reference's in-repo datasets (SURVEY.md §4.5) and the
 long-read (hbm/MRAM-analogue) tier: device results must match the
-exact-semantics oracle bit-for-bit.  Runs on the CPU-mesh XLA tier in CI;
-the same checks run on real TPU Pallas kernels out-of-band (BASELINE.md).
+exact-semantics oracle bit-for-bit.  Runs on the CPU mesh in CI; the
+same comparison at full size on the card is chip_smoke.py.
 """
 
 import os
@@ -14,12 +14,11 @@ from aim_tpu.api import align
 from aim_tpu.config import derive_config
 
 REF_SAMPLE = "/root/reference/Datasets/sample-l100-e1-40K"
-# Self-contained fallback: the checked-in generator sample (VERDICT r3
-# item 6) keeps these tests green without the reference mount.
+# Self-contained fallback: the checked-in generator sample keeps these tests green without the reference mount.
 LOCAL_SAMPLE = os.path.join(os.path.dirname(__file__), "..", "data",
                             "sample-l100-e1-2K")
 SAMPLE = REF_SAMPLE if os.path.exists(REF_SAMPLE) else LOCAL_SAMPLE
-N_SUB = 1024  # CPU-XLA subset; the full runs happen on TPU (BASELINE.md)
+N_SUB = 1024  # CPU subset; full-size runs are chip_smoke.py's
 
 
 def _oracle(algo, cfg, pats, txts, pl, tl):

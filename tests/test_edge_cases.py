@@ -1,100 +1,35 @@
-"""Degenerate inputs (empty/one-char sequences, all-mismatch) through the
-Pallas interpret kernels vs the exact oracle."""
+"""Degenerate inputs (empty/one-char sequences, all-mismatch) through
+api.align on every algorithm vs the exact oracle."""
 
-import numpy as np
 import pytest
 
-import aim_tpu.native as nat
 from aim_tpu.config import AlignConfig
-from tests.util import cigar_of, pack
+from tests.test_kernels_xla import ALGOS, assert_matches_oracle
+from tests.util import pack
 
 R = 16
 EDGE = [("", "ACG"), ("ACG", ""), ("", ""), ("A", "A"), ("A", "T"),
-        ("AC", "A"), ("A", "AC"), ("ACGT", "ACGT"), ("AAAA", "TTTT")] * 2
-PACKED = pack(EDGE, R)
+        ("AC", "A"), ("A", "AC"), ("ACGT", "ACGT"), ("AAAA", "TTTT"),
+        ("AAAAAAAAAAAAAAAA", "TTTTTTTTTTTTTTTT"), ("ACGTACGT", "A")] * 2
 
 
-def _check_runs(packed, sc, fb, oracle, max_score):
-    osc, oops, ob, oe = oracle
-    wops, wb, we = nat.wfa_runs_to_ops(packed, sc, *PACKED[2:],
-                                       max_score=max_score, max_ops=2 * R)
-    for i in range(len(EDGE)):
-        if fb is not None and fb[i]:
-            continue
-        assert sc[i] == osc[i], (i, EDGE[i])
-        assert cigar_of(oops[i], ob[i], oe[i]) == \
-            cigar_of(wops[i], wb[i], we[i]), (i, EDGE[i])
-
-
-def test_nw_pallas_edge_cases():
-    from aim_tpu.ops.nw_pallas import nw_forward_pallas
-    pats, txts, pl, tl = PACKED
-    cfg = AlignConfig(algo="nw", read_size=R, max_score=8, backtrace=True)
-    pk = np.asarray(nw_forward_pallas(pats, txts, pl, tl, cfg=cfg,
-                                      interpret=True)["packed_runs"])
-    sc = pk[:, 1].astype(np.int32)
-    fb = ((pk[:, 0].astype(np.int32) >> 8) & 1).astype(bool)
-    assert fb.mean() < 0.5
-    oracle = nat.nw_align(pats, txts, pl, tl, mismatch=3, gap_i=4, gap_d=4,
-                          backtrace=True)
-    _check_runs(pk, sc, fb, oracle, 1 << 30)
-
-
-def test_swg_pallas_edge_cases():
-    from aim_tpu.ops.swg_pallas import swg_forward_pallas
-    pats, txts, pl, tl = PACKED
-    cfg = AlignConfig(algo="swg", read_size=R, max_score=20, backtrace=True)
-    pk = np.asarray(swg_forward_pallas(pats, txts, pl, tl, cfg=cfg,
-                                       interpret=True)["packed_runs"])
-    sc = pk[:, 1].astype(np.int32)
-    fb = ((pk[:, 0].astype(np.int32) >> 8) & 1).astype(bool)
-    assert fb.mean() < 0.5
-    oracle = nat.swg_align(pats, txts, pl, tl, match=0, mismatch=3, gap_o=4,
-                           gap_e=1, max_score=20, cell_width=1,
-                           backtrace=True)
-    _check_runs(pk, sc, fb, oracle, 1 << 30)
-
-
-def test_wfa_pallas_edge_cases():
-    from aim_tpu.ops.wfa_pallas2 import wfa_forward_pallas2
-    pats, txts, pl, tl = PACKED
-    cfg = AlignConfig(algo="wfa", read_size=R, max_score=10, backtrace=True,
-                      adaptive=True)
-    recs = np.asarray(wfa_forward_pallas2(pats, txts, pl, tl, cfg=cfg,
-                                          interpret=True)["step_records"])
-    sc, wops, wb, we = nat.wfa_steps_to_ops(recs, pl, tl, max_score=10,
-                                            max_ops=2 * R)
-    osc, oops, ob, oe = nat.wfa_align(pats, txts, pl, tl, mismatch=3,
-                                      gap_o=4, gap_e=1, max_score=10,
-                                      adaptive=True, backtrace=True)
-    for i in range(len(EDGE)):
-        assert sc[i] == osc[i], (i, EDGE[i])
-        assert cigar_of(oops[i], ob[i], oe[i]) == \
-            cigar_of(wops[i], wb[i], we[i]), (i, EDGE[i])
-
-
-def test_swg_int8_soundness_gate():
-    """Int8 Pallas tier is admitted only under the proved no-wrap bound
-    (ops/swg_pallas.swg_int8_sound); wrap-capable configs route to the
-    full-width XLA tier whose wrap flags see every cell."""
-    from aim_tpu.config import AlignConfig, derive_config
-    from aim_tpu.ops.pallas_kernels import forward_fn
-    from aim_tpu.ops.swg_pallas import swg_int8_sound
-
-    canonical = derive_config("swg", 100, 0.01, backtrace=True)
-    assert canonical.cell_width == 1 and swg_int8_sound(canonical)
-    assert forward_fn(canonical) is not None
-
-    hot = AlignConfig(algo="swg", variant="vmem", max_score=100,
-                      read_size=136, mismatch=5, gap_o=4, gap_e=1)
-    assert hot.cell_width == 1 and not swg_int8_sound(hot)
-    assert forward_fn(hot) is None
+@pytest.mark.parametrize("backtrace", [True, False])
+@pytest.mark.parametrize("name", sorted(ALGOS))
+def test_edge_cases_match_oracle(name, backtrace):
+    from aim_tpu.api import align
+    pats, txts, pl, tl = pack(EDGE, R)
+    cfg = AlignConfig(read_size=R, backtrace=backtrace, **ALGOS[name])
+    res = align(pats, txts, pl, tl, cfg)
+    assert_matches_oracle(res, cfg, pats, txts, pl, tl)
+    if cfg.algo in ("wfa", "genasm"):
+        # the all-mismatch pairs overflow MAX_SCORE
+        assert (res.scores == cfg.max_score + 1).any()
 
 
 def test_swg_int8_wrapping_input_stays_exact():
     """An input that genuinely wraps the reference's int8 tape (all-
     mismatch pair under a hot cost model) must still come back equal to
-    the oracle through api.align (XLA tier wrap flags -> oracle)."""
+    the oracle through api.align (the kernel's wrap flags -> oracle)."""
     import numpy as np
     import aim_tpu.native as nat
     from aim_tpu.api import align
@@ -102,7 +37,7 @@ def test_swg_int8_wrapping_input_stays_exact():
 
     cfg = AlignConfig(algo="swg", variant="vmem", max_score=100,
                       read_size=40, mismatch=5, gap_o=4, gap_e=1,
-                      backtrace=True, backend="auto")
+                      backtrace=True)
     n, l = 8, 40
     pats = np.full((n, 40), ord("A"), np.uint8)
     txts = np.full((n, 40), ord("C"), np.uint8)

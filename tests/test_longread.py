@@ -2,14 +2,13 @@
 analogue of the reference's DPU-MRAM variants (NW READ_SIZE 1120,
 WFA MAX_SCORE 250; ref common.h defaults)."""
 
+import random
+
 import numpy as np
-import pytest
 
 import aim_tpu.native as nat
 from aim_tpu.config import AlignConfig
 from tests.util import cigar_of, make_pair, pack
-
-import random
 
 R = 264
 N = 12
@@ -30,8 +29,7 @@ def test_wfa_hbm_longread_matches_oracle():
     pairs = _pairs()
     pats, txts, pl, tl = pack(pairs, R)
     cfg = AlignConfig(algo="wfa", read_size=R, max_score=40, backtrace=True,
-                      adaptive=True, variant="hbm", backend="xla",
-                      batch_pairs=16)
+                      adaptive=True, variant="hbm", batch_pairs=16)
     res = align(pats, txts, pl, tl, cfg)
     osc, oops, ob, oe = nat.wfa_align(pats, txts, pl, tl, mismatch=3,
                                       gap_o=4, gap_e=1, max_score=40,
@@ -49,7 +47,7 @@ def test_swg_hbm_int16_cells():
     pairs = _pairs()
     pats, txts, pl, tl = pack(pairs, R)
     cfg = AlignConfig(algo="swg", read_size=R, max_score=400, variant="hbm",
-                      backend="xla", backtrace=True, batch_pairs=16)
+                      backtrace=True, batch_pairs=16)
     assert cfg.cell_width == 2
     res = align(pats, txts, pl, tl, cfg)
     osc, oops, ob, oe = nat.swg_align(pats, txts, pl, tl, match=0, mismatch=3,
@@ -59,902 +57,3 @@ def test_swg_hbm_int16_cells():
     for i in range(N):
         assert cigar_of(res.ops[i], res.begin[i], res.end[i]) == \
             cigar_of(oops[i], ob[i], oe[i])
-
-
-def test_wfa_long_kernel_interpret_matches_oracle():
-    """The HBM-spill Pallas kernel (ops/wfa_pallas_long.py) in interpret
-    mode: forward ring + HBM history DMA + level-walk backtrace must be
-    byte-exact vs the oracle (the real-TPU sweep incl. 10 kbp/smax=500
-    runs out-of-band: tools/dev_long_tpu.py)."""
-    from aim_tpu.ops.wfa_pallas_long import (long_fit,
-                                             wfa_forward_pallas_long)
-
-    pairs = _pairs()
-    pats, txts, pl, tl = pack(pairs, R)
-    cfg = AlignConfig(algo="wfa", read_size=R, max_score=40, backtrace=True,
-                      adaptive=True, variant="hbm")
-    assert long_fit(cfg)
-    out = wfa_forward_pallas_long(pats, txts, pl.astype(np.int32),
-                                  tl.astype(np.int32), cfg=cfg,
-                                  interpret=True)
-    recs = np.asarray(out["step_records"])
-    sc, ops, b, e = nat.wfa_steps_to_ops(recs, pl, tl, max_score=40,
-                                         max_ops=2 * R)
-    osc, oops, ob, oe = nat.wfa_align(pats, txts, pl, tl, mismatch=3,
-                                      gap_o=4, gap_e=1, max_score=40,
-                                      adaptive=True, backtrace=True)
-    np.testing.assert_array_equal(sc, osc)
-    for i in range(N):
-        assert cigar_of(ops[i], b[i], e[i]) == \
-            cigar_of(oops[i], ob[i], oe[i])
-
-
-def test_wfa_tier_selection():
-    """Dispatch: short configs take the VMEM kernel, beyond-VMEM configs
-    the HBM-spill kernel, and giants fall back to XLA."""
-    from aim_tpu.config import derive_config
-    from aim_tpu.ops.pallas_kernels import forward_fn
-    from aim_tpu.ops.wfa_pallas2 import vmem_fit2
-
-    short = derive_config("wfa", 100, 0.01, backtrace=True, adaptive=True)
-    assert vmem_fit2(short) and forward_fn(short) is not None
-
-    long_ = derive_config("wfa", 10000, 0.01, backtrace=True, adaptive=True,
-                          variant="hbm")
-    assert not vmem_fit2(long_)
-    fn = forward_fn(long_)
-    assert fn is not None and getattr(fn, "requires_packed", False)
-
-    giant = long_.replace(max_score=2000)
-    assert forward_fn(giant) is None
-
-
-def test_wfa_long_smax_envelope_boundary():
-    """The long tier's smax cap is exactly 1023 (step-record bit fields,
-    shared with wfa_pallas2.record_rows): smax=1023 is admitted,
-    smax=1024 falls to the exact XLA tier.  At default costs
-    (x=3, o=4, a=1 => smax = ceil(5*e*l)) the on-device envelope is
-    e*l <= 204.6 — e.g. e=2% to l~10,230; e=1% to the R cap (~16 kbp).
-    Documented in PARITY §5.7 (VERDICT r3 item 10: no config silently
-    changes tier without a documented rule)."""
-    from aim_tpu.config import derive_config
-    from aim_tpu.ops.pallas_kernels import forward_fn
-    from aim_tpu.ops.wfa_pallas_long import long_fit
-
-    base = derive_config("wfa", 10000, 0.01, backtrace=True, adaptive=True,
-                         variant="hbm")
-    at_cap = base.replace(max_score=1023)
-    over = base.replace(max_score=1024)
-    assert long_fit(at_cap) and long_fit(at_cap, bytes_mode=True)
-    assert not long_fit(over) and not long_fit(over, bytes_mode=True)
-    assert forward_fn(over) is None       # api takes the exact XLA tier
-
-    # The derive-side view of the same rule: e=2.1% at l=10k exceeds the
-    # cap (ceil(5*210) = 1050 > 1023) and must not be silently admitted.
-    hot = derive_config("wfa", 10000, 0.021, backtrace=True, adaptive=True,
-                        variant="hbm")
-    assert hot.max_score > 1023 and forward_fn(hot) is None
-
-
-def _check_nwswg_long(cfg, pats, txts, pl, tl, min_ok=0.75, planes=1):
-    from aim_tpu.ops.nwswg_pallas_long import (long_fit_nwswg,
-                                               nwswg_forward_pallas_long)
-    assert long_fit_nwswg(cfg)
-    out = nwswg_forward_pallas_long(pats, txts, pl.astype(np.int32),
-                                    tl.astype(np.int32), cfg=cfg,
-                                    interpret=True, planes=planes)
-    packed = np.asarray(out["packed_runs"])
-    sc = packed[:, 1].astype(np.int32)
-    fb = ((packed[:, 0].astype(np.int32) >> 8) & 1).astype(bool)
-    if cfg.algo == "nw":
-        osc, oops, ob, oe = nat.nw_align(pats, txts, pl, tl,
-                                         mismatch=cfg.mismatch,
-                                         gap_i=cfg.gap_i, gap_d=cfg.gap_d,
-                                         backtrace=True)
-    else:
-        osc, oops, ob, oe = nat.swg_align(pats, txts, pl, tl,
-                                          match=cfg.match,
-                                          mismatch=cfg.mismatch,
-                                          gap_o=cfg.gap_o, gap_e=cfg.gap_e,
-                                          max_score=cfg.max_score,
-                                          cell_width=2, backtrace=True)
-    ok = ~fb
-    assert ok.mean() >= min_ok
-    np.testing.assert_array_equal(sc[ok], osc[ok])
-    wops, wb, we = nat.wfa_runs_to_ops(packed, sc, pl, tl,
-                                       max_score=1 << 30,
-                                       max_ops=2 * cfg.read_size + 8)
-    for i in range(len(pl)):
-        if ok[i]:
-            assert cigar_of(wops[i], wb[i], we[i]) == \
-                cigar_of(oops[i], ob[i], oe[i]), i
-
-
-def test_nw_long_kernel_multiblock_interpret():
-    """NW HBM-streamed tier (ops/nwswg_pallas_long.py), 2 row blocks:
-    the forward carry and the walk's block hand-off cross a block
-    boundary (the MRAM-table analogue, NW/DPU-MRAM/dpu/nw.c:151-237)."""
-    rng = random.Random(77)
-    R2 = 576              # RB=512 -> NBK=2
-    pairs = []
-    for _ in range(12):
-        lp = rng.randrange(430, 560)
-        pairs.append(make_pair(rng, lp, max(1, lp + rng.choice([-1, 0, 1])),
-                               rng.randrange(0, 10)))
-    pats, txts, pl, tl = pack(pairs, R2)
-    cfg = AlignConfig(algo="nw", read_size=R2, max_score=300,
-                      backtrace=True, gap_i=2, gap_d=3, mismatch=3)
-    _check_nwswg_long(cfg, pats, txts, pl, tl)
-
-
-def test_swg_long_kernel_multiblock_interpret():
-    """SWG HBM-streamed tier, 3 row blocks (RB=256), int16 cells."""
-    rng = random.Random(78)
-    R2 = 640
-    pairs = []
-    for _ in range(12):
-        lp = rng.randrange(520, 620)
-        pairs.append(make_pair(rng, lp, max(1, lp + rng.choice([-1, 0, 1])),
-                               rng.randrange(0, 10)))
-    pats, txts, pl, tl = pack(pairs, R2)
-    cfg = AlignConfig(algo="swg", read_size=R2, max_score=400,
-                      backtrace=True, match=0, mismatch=3, gap_o=4,
-                      gap_e=1, variant="hbm")
-    assert cfg.cell_width == 2
-    _check_nwswg_long(cfg, pats, txts, pl, tl)
-
-
-@pytest.mark.parametrize("planes", [1, 2])
-def test_nwswg_long_mixed_lengths_interpret(planes):
-    """Empty/tiny/full-length pairs in one tile: padded pairs must score
-    0 with empty CIGARs and the walk's per-block waiting must not stall
-    live pairs — on both the primary and the wide band."""
-    rng = random.Random(79)
-    R2 = 576
-    pairs = []
-    for lp in (0, 1, 7, 100, 333, 560):
-        lt = max(0, lp + (rng.choice([-1, 0, 1]) if lp > 2 else 0))
-        pairs.append(make_pair(rng, lp, lt, max(0, lp // 64)))
-    pats, txts, pl, tl = pack(pairs, R2)
-    cfg = AlignConfig(algo="nw", read_size=R2, max_score=300,
-                      backtrace=True, gap_i=2, gap_d=3, mismatch=3)
-    _check_nwswg_long(cfg, pats, txts, pl, tl, min_ok=0.6, planes=planes)
-
-
-def test_genasm_long_kernel_interpret():
-    """GenASM long tier (ops/genasm_long.py): unit-cost streamed NW
-    kernel + overflow rewrite.  Covers k past the VMEM bit-vector gate
-    (k=40 >= 27), pairs under and over k (>k must become the k+1
-    single-'M' overflow record), and half-empty pairs (score plen+tlen,
-    pure I/D tail runs)."""
-    from aim_tpu.ops.genasm_long import (genasm_forward_pallas_long,
-                                         long_fit_genasm)
-    rng = random.Random(83)
-    R2 = 576
-    k = 40
-    pairs = []
-    for _ in range(8):       # near-diagonal, mostly <= k
-        lp = rng.randrange(430, 560)
-        pairs.append(make_pair(rng, lp, max(1, lp + rng.choice([-1, 0, 1])),
-                               rng.randrange(0, 12)))
-    for _ in range(3):       # balanced but error-dense -> distance > k,
-        lp = rng.randrange(430, 560)   # still in-band: certified overflow
-        pairs.append(make_pair(rng, lp, lp, rng.randrange(55, 80)))
-    # length mismatch past the band -> must be FLAGGED, not mis-certified
-    pairs.append(make_pair(rng, 500, 380, 0))
-    pairs.append(make_pair(rng, 0, 37, 0))    # half-empty: score = lt
-    pairs.append(make_pair(rng, 0, 52, 0))    # half-empty AND > k
-    pats, txts, pl, tl = pack(pairs, R2)
-    cfg = AlignConfig(algo="genasm", read_size=R2, max_score=k,
-                      backtrace=True, mismatch=1, gap_i=1, gap_d=1,
-                      variant="hbm")
-    assert long_fit_genasm(cfg)
-    out = genasm_forward_pallas_long(pats, txts, pl.astype(np.int32),
-                                     tl.astype(np.int32), cfg=cfg,
-                                     interpret=True)
-    packed = np.asarray(out["packed_runs"])
-    sc = packed[:, 1].astype(np.int32)
-    fb = ((packed[:, 0].astype(np.int32) >> 8) & 1).astype(bool)
-    osc, oops, ob, oe = nat.genasm_align(pats, txts, pl, tl, max_score=k,
-                                         backtrace=True)
-    ok = ~fb
-    assert ok.mean() >= 0.7
-    assert fb[-3]                       # out-of-band pair is flagged
-    # (0,52): the patched half-empty score 52 > k must then overflow
-    assert ok[-2:].all() and (sc[-2:] == np.array([37, k + 1])).all()
-    assert (sc[ok] > k).sum() >= 1     # at least one certified overflow
-    np.testing.assert_array_equal(sc[ok], osc[ok])
-    wops, wb, we = nat.wfa_runs_to_ops(packed, sc, pl, tl,
-                                       max_score=1 << 30,
-                                       max_ops=2 * cfg.read_size + 8)
-    for i in range(len(pl)):
-        if ok[i]:
-            assert cigar_of(wops[i], wb[i], we[i]) == \
-                cigar_of(oops[i], ob[i], oe[i]), i
-
-
-def _subs_pair(rng, lp, nsub):
-    """Equal-length pair differing by nsub guaranteed substitutions:
-    edit distance == nsub, no length drift (kend == 0)."""
-    bases = "ACGT"
-    p = [rng.choice(bases) for _ in range(lp)]
-    t = list(p)
-    for pos in rng.sample(range(lp), nsub):
-        t[pos] = bases[(bases.index(t[pos]) + rng.randrange(1, 4)) % 4]
-    return "".join(p), "".join(t)
-
-
-def _burst_subs_pair(rng, lp, d):
-    """Equal-length pair with d/3 bursts of 3 substitutions (spaced >= 4
-    apart): edit distance ~ d with only ~2d/3 CIGAR runs — distances
-    past the spread-substitution record-capacity bound (~126) stay
-    representable.  (One long substituted block does NOT work: shifted
-    alignments through the block deflate the distance.)"""
-    bases = "ACGT"
-    p = [rng.choice(bases) for _ in range(lp)]
-    t = list(p)
-    nb = d // 3
-    for i in range(nb):
-        start = i * (lp // nb) + rng.randrange(0, max(1, lp // nb - 6))
-        for pos in range(start, min(start + 3, lp)):
-            t[pos] = bases[(bases.index(t[pos]) + rng.randrange(1, 4)) % 4]
-    return "".join(p), "".join(t)
-
-
-def test_nwswg_wide_band_retry_interpret():
-    """Wide-band retry tier (npl=2, C=127): SWG pairs whose score
-    exceeds the primary C=63 envelope certify on the wide band, and
-    api._retry_wide lands their scores/CIGARs while returning only the
-    still-flagged pairs (here a multi-alias pair) for the oracle."""
-    from functools import partial
-    from aim_tpu.api import AlignResult, _retry_wide
-    from aim_tpu.ops.nwswg_pallas_long import nwswg_forward_pallas_long
-    rng = random.Random(97)
-    R2 = 640
-    pairs = []
-    for _ in range(4):       # substitution-only: score = 3*nsub in
-        lp = rng.randrange(560, 620)   # (150, 210] > envelope 132,
-        pairs.append(_subs_pair(rng, lp, rng.randrange(51, 70)))
-    pairs.append(make_pair(rng, 600, 600, 3))      # in-envelope
-    pairs.append(make_pair(rng, 200, 150, 0))      # plen > tlen+1: alias
-    pats, txts, pl, tl = pack(pairs, R2)
-    pl32, tl32 = pl.astype(np.int32), tl.astype(np.int32)
-    cfg = AlignConfig(algo="swg", read_size=R2, max_score=400,
-                      backtrace=True, match=0, mismatch=3, gap_o=4,
-                      gap_e=1, variant="hbm")
-    out = nwswg_forward_pallas_long(pats, txts, pl32, tl32, cfg=cfg,
-                                    interpret=True)
-    packed = np.asarray(out["packed_runs"])
-    fb = ((packed[:, 0].astype(np.int32) >> 8) & 1).astype(bool)
-    assert fb[:4].all() and not fb[4] and fb[5]
-    n = len(pl)
-    scores = np.zeros(n, np.int32)
-    max_ops = 2 * R2
-    ops = np.zeros((n, max_ops), np.uint8)
-    begin = np.zeros(n, np.int32)
-    end = np.zeros(n, np.int32)
-    res = AlignResult(scores, ops, begin, end)
-    sel = np.nonzero(fb)[0]
-    left = _retry_wide(partial(nwswg_forward_pallas_long, interpret=True),
-                       cfg, pats, txts, pl, tl, sel, scores, ops, begin,
-                       end, 0, max_ops, lambda a: a, res)
-    assert list(left) == [5]          # only the alias pair remains
-    assert res.n_retry == 4
-    osc, oops, ob, oe = nat.swg_align(pats, txts, pl, tl, match=0,
-                                      mismatch=3, gap_o=4, gap_e=1,
-                                      max_score=400, cell_width=2,
-                                      backtrace=True)
-    np.testing.assert_array_equal(scores[:4], osc[:4])
-    assert (osc[:4] > 132).any()      # beyond the narrow envelope indeed
-    for i in range(4):
-        assert cigar_of(ops[i], begin[i], end[i]) == \
-            cigar_of(oops[i], ob[i], oe[i]), i
-
-
-def test_genasm_wide_k_interpret():
-    """GenASM long tier at k past the npl=1 envelope (124 < k <= 252)
-    runs the wide band statically: certified scores and >k overflow
-    rewrites at k=160."""
-    from aim_tpu.ops.genasm_long import (_npl, genasm_forward_pallas_long,
-                                         long_fit_genasm)
-    rng = random.Random(101)
-    R2 = 640
-    k = 160
-    # Spread substitutions make ~2d+1 runs.  Under the fixed 256-lane
-    # records (through round 5) the 150-spread-subs pair (295 runs)
-    # capacity-flagged; runs_lanes_long now sizes GenASM's unit-cost
-    # records to 1024 lanes, so it must be SERVED and byte-exact.
-    pairs = [
-        _subs_pair(rng, 560, 40),           # certified, in npl=1 range
-        _subs_pair(rng, 600, 90),           # certified
-        _burst_subs_pair(rng, 580, 150),    # certified, past 124
-        _burst_subs_pair(rng, 610, 200),    # > k: overflow rewrite
-        _subs_pair(rng, 590, 150),          # 295 runs: past the old cap
-        _burst_subs_pair(rng, 540, 135),    # certified, past 124
-    ]
-    pats, txts, pl, tl = pack(pairs, R2)
-    cfg = AlignConfig(algo="genasm", read_size=R2, max_score=k,
-                      backtrace=True, mismatch=1, gap_i=1, gap_d=1,
-                      variant="hbm")
-    assert _npl(cfg) == 2 and long_fit_genasm(cfg)
-    out = genasm_forward_pallas_long(pats, txts, pl.astype(np.int32),
-                                     tl.astype(np.int32), cfg=cfg,
-                                     interpret=True)
-    packed = np.asarray(out["packed_runs"])
-    sc = packed[:, 1].astype(np.int32)
-    fb = ((packed[:, 0].astype(np.int32) >> 8) & 1).astype(bool)
-    osc, oops, ob, oe = nat.genasm_align(pats, txts, pl, tl, max_score=k,
-                                         backtrace=True)
-    ok = ~fb
-    assert list(ok) == [True] * 6
-    assert (sc[ok] > 124).any()       # scores past the npl=1 envelope
-    assert sc[3] == k + 1             # certified overflow rewrite
-    np.testing.assert_array_equal(sc[ok], osc[ok])
-    wops, wb, we = nat.wfa_runs_to_ops(packed, sc, pl, tl,
-                                       max_score=1 << 30,
-                                       max_ops=2 * cfg.read_size + 8)
-    for i in range(len(pl)):
-        if ok[i]:
-            assert cigar_of(wops[i], wb[i], we[i]) == \
-                cigar_of(oops[i], ob[i], oe[i]), i
-
-
-def test_nwswg_tier_selection():
-    """Dispatch: beyond-VMEM NW/SWG configs route to the streamed long
-    kernel (with its HBM footprint declared); int8-cell SWG and
-    negative-match configs stay on XLA."""
-    from aim_tpu.config import derive_config
-    from aim_tpu.ops.nw_pallas import vmem_fit_nw
-    from aim_tpu.ops.pallas_kernels import forward_fn
-
-    long_nw = derive_config("nw", 4000, 0.01, backtrace=True, variant="hbm")
-    assert not vmem_fit_nw(long_nw)
-    fn = forward_fn(long_nw)
-    assert fn is not None and getattr(fn, "hbm_per_pair", 0) > 0
-
-    long_swg = derive_config("swg", 4000, 0.01, backtrace=True,
-                             variant="hbm")
-    assert long_swg.cell_width == 2
-    fn = forward_fn(long_swg)
-    assert fn is not None and getattr(fn, "hbm_per_pair", 0) > 0
-
-    neg = long_swg.replace(match=-1)
-    assert forward_fn(neg) is None
-
-    giant = long_nw.replace(read_size=20000)
-    assert forward_fn(giant) is None
-
-
-def test_wfa_long_kernel_mixed_lengths_interpret():
-    """One tile mixing empty, tiny, and full-length pairs: the extend's
-    block-window bounds span the whole word range (worst case for the
-    gather skipping) and padded pairs finish at score 0."""
-    from aim_tpu.ops.wfa_pallas_long import wfa_forward_pallas_long
-
-    rng = np.random.default_rng(91)
-    bases = np.frombuffer(b"ACGT", np.uint8)
-    R2, K2 = 520, 50
-    n = 16
-    pats = np.zeros((n, R2), np.uint8)
-    txts = np.zeros((n, R2), np.uint8)
-    pl = np.zeros(n, np.int32)
-    tl = np.zeros(n, np.int32)
-    lens = [0, 1, 13, 50, 250, 500]
-    for i in range(n):
-        lp = lens[i % len(lens)]
-        lt = max(0, lp + int(rng.integers(-3, 4))) if lp else 0
-        p0 = bases[rng.integers(0, 4, lp)] if lp else np.zeros(0, np.uint8)
-        if lt <= lp:
-            t0 = p0[:lt].copy()
-        else:
-            t0 = np.concatenate([p0, bases[rng.integers(0, 4, lt - lp)]])
-        if lt:
-            mut = rng.random(lt) < 0.02
-            t0 = np.where(mut, bases[rng.integers(0, 4, lt)], t0)
-        pats[i, :lp] = p0
-        txts[i, :lt] = t0
-        pl[i] = lp
-        tl[i] = lt
-    cfg = AlignConfig(algo="wfa", read_size=R2, max_score=K2,
-                      backtrace=True, adaptive=True, variant="hbm")
-    out = wfa_forward_pallas_long(pats, txts, pl, tl, cfg=cfg,
-                                  interpret=True)
-    recs = np.asarray(out["step_records"])
-    sc, ops, b, e = nat.wfa_steps_to_ops(recs, pl, tl, max_score=K2,
-                                         max_ops=2 * R2)
-    osc, oops, ob, oe = nat.wfa_align(pats, txts, pl, tl, mismatch=3,
-                                      gap_o=4, gap_e=1, max_score=K2,
-                                      adaptive=True, backtrace=True)
-    np.testing.assert_array_equal(sc, osc)
-    for i in range(n):
-        if osc[i] <= K2:
-            assert cigar_of(ops[i], b[i], e[i]) == \
-                cigar_of(oops[i], ob[i], oe[i]), i
-
-
-def test_retry_wide_chunking_and_skip_host_logic():
-    """_retry_wide host logic with a stub retry fn: power-of-two batch
-    padding, budget-derived chunking, unfixable-pair skip (aliasing +
-    length skew), and still-flagged propagation — no kernels involved."""
-    from aim_tpu.api import AlignResult, _retry_wide
-    n = 700
-    R2 = 576
-    rng = random.Random(7)
-    cfg = AlignConfig(algo="nw", read_size=R2, max_score=300,
-                      backtrace=False, gap_i=1, gap_d=1, mismatch=1)
-    pl = np.full(n, 500, np.int32)
-    tl = np.full(n, 500, np.int32)
-    pl[5] = 200          # aliasing: plen > tlen+1 -> skipped
-    tl[5] = 100
-    tl[6] = 500 + 200    # length skew past C=127 -> skipped
-    pl[6] = 500
-    pats = np.zeros((n, R2), np.uint8)
-    txts = np.zeros((n, R2), np.uint8)
-    calls = []
-
-    def stub_retry(dp, dt, dpl, dtl, *, cfg, planes=2):
-        m = len(dpl)
-        calls.append(m)
-        assert m & (m - 1) == 0 and m >= 128      # power of two
-        runs = np.zeros((m, 256), np.int16)
-        runs[:, 0] = 254
-        runs[:, 1] = 7
-        # flag one pair per batch (the first) to exercise propagation
-        runs[0, 0] |= 1 << 8
-        return {"packed_runs": runs}
-
-    res = AlignResult(np.zeros(n, np.int32), None, None, None)
-    sel = np.arange(n)
-    left = _retry_wide(stub_retry, cfg, pats, txts, pl, tl, sel,
-                       res.scores, None, None, None, 0, 2 * R2,
-                       lambda a: a, res)
-    # skipped: 5 and 6; flagged by the stub: first pair of each batch
-    assert 5 in left and 6 in left
-    assert res.n_retry == n - 2 - len([x for x in left
-                                       if x not in (5, 6)])
-    assert (res.scores[np.setdiff1d(np.arange(n), left)] == 7).all()
-    # batches stayed within the budget-derived / 8192 cap
-    assert all(m <= 8192 for m in calls) and len(calls) >= 1
-
-    # sharded runs pass the mesh alignment: retry batches must pad to a
-    # multiple of it (a bare power of two is NOT divisible by e.g. a
-    # 6-device mesh, which would disable the tier via the except path)
-    calls6 = []
-
-    def stub6(dp, dt, dpl, dtl, *, cfg, planes=2):
-        m = len(dpl)
-        calls6.append(m)
-        assert m % 48 == 0 and m >= 128
-        runs = np.zeros((m, 256), np.int16)
-        runs[:, 0] = 254
-        runs[:, 1] = 7
-        return {"packed_runs": runs}
-
-    res2 = AlignResult(np.zeros(n, np.int32), None, None, None)
-    left2 = _retry_wide(stub6, cfg, pats, txts, pl, tl, np.arange(n),
-                        res2.scores, None, None, None, 0, 2 * R2,
-                        lambda a: a, res2, pad_align=48)
-    assert sorted(left2) == [5, 6] and len(calls6) >= 1
-
-
-def test_retry_stages_env_parsing(monkeypatch):
-    """The escalation ladder is env-configurable (AIM_TPU_RETRY_PLANES);
-    default is the full TPU-validated ladder (2, 4, 8) — npl=4 since
-    the round-5 compile-size fix, npl=8 (C=511) since its round-5 TPU
-    certification; nonsense values fall back; a fwd without a retry
-    tier gets no stages."""
-    from aim_tpu import api
-
-    class F:
-        retry_fn = staticmethod(lambda *a, **k: None)
-
-    monkeypatch.delenv("AIM_TPU_RETRY_PLANES", raising=False)
-    assert api._retry_stages(F()) == (2, 4, 8)
-    monkeypatch.setenv("AIM_TPU_RETRY_PLANES", "2,4")
-    assert api._retry_stages(F()) == (2, 4)
-    monkeypatch.setenv("AIM_TPU_RETRY_PLANES", "bogus")
-    assert api._retry_stages(F()) == (2,)
-    monkeypatch.setenv("AIM_TPU_RETRY_PLANES", "2,64")  # >8: dropped
-    assert api._retry_stages(F()) == (2,)
-
-    class NoRetry:
-        pass
-
-    monkeypatch.setenv("AIM_TPU_RETRY_PLANES", "2,4")
-    assert api._retry_stages(NoRetry()) == ()
-
-    # stages not wider than the primary tier's band are futile and
-    # dropped (e.g. GenASM k>124 already runs npl=2 as its primary)
-    class Primary2(F):
-        primary_planes = 2
-
-    assert api._retry_stages(Primary2()) == (4,)
-    monkeypatch.setenv("AIM_TPU_RETRY_PLANES", "2")
-    assert api._retry_stages(Primary2()) == ()
-    # out-of-order / duplicate tokens normalize to ascending unique
-    monkeypatch.setenv("AIM_TPU_RETRY_PLANES", "4,2,2")
-    assert api._retry_stages(F()) == (2, 4)
-    # explicit empty = disable the ladder outright
-    monkeypatch.setenv("AIM_TPU_RETRY_PLANES", "")
-    assert api._retry_stages(F()) == ()
-
-
-def test_retry_ladder_escalation_host_logic():
-    """Two-stage ladder with a stub: stage planes=2 certifies nothing
-    (and must skip pairs whose skew exceeds C=127); stage planes=4
-    certifies everything it is given.  The stage loop is api.align's —
-    here replicated over _retry_wide exactly as align runs it."""
-    from aim_tpu.api import AlignResult, _retry_wide
-    n = 10
-    R2 = 576
-    cfg = AlignConfig(algo="nw", read_size=R2, max_score=300,
-                      backtrace=False, gap_i=1, gap_d=1, mismatch=1)
-    pl = np.full(n, 300, np.int32)
-    tl = np.full(n, 300, np.int32)
-    tl[3] = 300 + 150            # skew > C=127: unfixable at stage 2,
-    tl[7] = 300 + 200            # retried at stage 4 (C=255)
-    pats = np.zeros((n, R2), np.uint8)
-    txts = np.zeros((n, R2), np.uint8)
-    seen = []
-
-    def stub_retry(dp, dt, dpl, dtl, *, cfg, planes=2):
-        m = len(dpl)
-        seen.append((planes, m))
-        runs = np.zeros((m, 256), np.int16)
-        runs[:, 0] = 254
-        runs[:, 1] = planes      # stage id as score, checkable below
-        if planes == 2:
-            runs[:, 0] |= 1 << 8          # stage 2: everything stays
-        return {"packed_runs": runs}      # flagged; stage 4: all good
-
-    res = AlignResult(np.zeros(n, np.int32), None, None, None)
-    sel = np.arange(n)
-    for p in (2, 4):
-        if not len(sel):
-            break
-        sel = _retry_wide(stub_retry, cfg, pats, txts, pl, tl, sel,
-                          res.scores, None, None, None, 0, 2 * R2,
-                          lambda a: a, res, planes=p)
-    assert len(sel) == 0                  # stage 4 certified everything
-    assert (res.scores == 4).all()        # landed by the planes=4 stage
-    # stage 2 never saw the >C127-skew pairs; stage 4 saw all ten
-    assert seen[0][0] == 2 and seen[0][1] >= 8
-    assert any(p == 4 and m >= n for p, m in seen)
-    assert res.n_retry == n
-
-
-@pytest.mark.slow
-def test_retry_ladder_planes4_interpret():
-    """End-to-end ladder stage 4 on the real kernel (interpret mode):
-    an NW pair with length skew 141 — unfixable at C=127 — certifies
-    exactly on the npl=4 band through _retry_wide."""
-    from functools import partial
-    from aim_tpu.api import AlignResult, _retry_wide
-    from aim_tpu.ops.nwswg_pallas_long import nwswg_forward_pallas_long
-    rng = random.Random(53)
-    R2 = 576
-    pairs = [make_pair(rng, 280, 280 + 141, 3),
-             make_pair(rng, 300, 300, 2)]
-    pats, txts, pl, tl = pack(pairs, R2)
-    cfg = AlignConfig(algo="nw", read_size=R2, max_score=300,
-                      backtrace=True, gap_i=2, gap_d=5, mismatch=1,
-                      variant="hbm")
-    n = len(pl)
-    scores = np.zeros(n, np.int32)
-    max_ops = 2 * R2
-    ops = np.zeros((n, max_ops), np.uint8)
-    begin = np.zeros(n, np.int32)
-    end = np.zeros(n, np.int32)
-    res = AlignResult(scores, ops, begin, end)
-    sel = np.array([0])
-    # stage 2 skips it outright (skew 141 > C=127, host-computable)
-    left = _retry_wide(partial(nwswg_forward_pallas_long, interpret=True),
-                       cfg, pats, txts, pl, tl, sel, scores, ops, begin,
-                       end, 0, max_ops, lambda a: a, res, planes=2)
-    assert list(left) == [0] and res.n_retry == 0
-    # stage 4 certifies it
-    left = _retry_wide(partial(nwswg_forward_pallas_long, interpret=True),
-                       cfg, pats, txts, pl, tl, left, scores, ops, begin,
-                       end, 0, max_ops, lambda a: a, res, planes=4)
-    assert len(left) == 0 and res.n_retry == 1
-    osc, oops, ob, oe = nat.nw_align(pats, txts, pl, tl, mismatch=1,
-                                     gap_i=2, gap_d=5, backtrace=True)
-    assert scores[0] == osc[0]
-    assert cigar_of(ops[0], begin[0], end[0]) == cigar_of(oops[0], ob[0],
-                                                          oe[0])
-
-
-def test_streamed_score_only_interpret():
-    """backtrace=False declares a meta-only forward (no cb/ism outputs
-    allocated or streamed — hbm_per_pair drops those terms): scores and
-    flags must match the backtrace run's."""
-    from aim_tpu.ops.nwswg_pallas_long import (hbm_per_pair,
-                                               nwswg_forward_pallas_long)
-    from tests.util import random_pairs
-    R = 96
-    pairs = random_pairs(seed=7, n=128, max_len=90, balanced=False)
-    pats, txts, pl, tl = pack(pairs, R)
-    for algo in ("nw", "swg"):
-        mk = dict(algo=algo, read_size=R, variant="hbm")
-        mk.update(dict(gap_i=2, gap_d=3, mismatch=3, max_score=60)
-                  if algo == "nw" else
-                  dict(match=0, mismatch=3, gap_o=4, gap_e=1,
-                       max_score=400))
-        cso = AlignConfig(backtrace=False, **mk)
-        cbt = AlignConfig(backtrace=True, **mk)
-        assert hbm_per_pair(cso) < hbm_per_pair(cbt)
-        so = np.asarray(nwswg_forward_pallas_long(
-            pats, txts, pl, tl, cfg=cso, interpret=True)["packed_runs"])
-        bt = np.asarray(nwswg_forward_pallas_long(
-            pats, txts, pl, tl, cfg=cbt, interpret=True)["packed_runs"])
-        np.testing.assert_array_equal(so[:, 1], bt[:, 1], err_msg=algo)
-        # score-only flag (bit 9) must imply the backtrace run's flag
-        so9 = (so[:, 0].astype(np.int32) >> 9) & 1
-        bt8 = (bt[:, 0].astype(np.int32) >> 8) & 1
-        assert (so9 <= bt8).all(), algo
-
-
-def test_genasm_k_cap_npl4_boundaries():
-    """The GenASM long-tier admission cap follows the band ladder:
-    k <= 124 -> npl=1, <= 252 -> npl=2, <= 508 -> npl=4 (the npl=4
-    stage is TPU-certified since round 5); 509 is past the npl=4
-    band-flag bound (score//2 + 1 <= 255) and must not be admitted."""
-    from aim_tpu.ops.genasm_long import _npl, long_fit_genasm
-
-    def ga(k):
-        return AlignConfig(algo="genasm", read_size=2048, max_score=k,
-                           backtrace=True)
-    assert _npl(ga(124)) == 1 and _npl(ga(125)) == 2
-    assert _npl(ga(252)) == 2 and _npl(ga(253)) == 4
-    assert long_fit_genasm(ga(508)) and _npl(ga(508)) == 4
-    assert not long_fit_genasm(ga(509))
-
-
-@pytest.mark.slow
-def test_genasm_npl4_past_252_interpret():
-    """GenASM long tier past the old k <= 252 cap: k=270 runs the
-    npl=4 (C=255) band as its primary; distances past 252 (a contiguous
-    substituted burst) certify exactly, and the >k overflow rewrite
-    still applies on the wider records."""
-    from aim_tpu.ops.genasm_long import (_npl, genasm_forward_pallas_long,
-                                         long_fit_genasm)
-    rng = random.Random(103)
-    R2 = 576
-    k = 270
-    # burst distances deflate ~10-15% (shifted alignments through a
-    # burst), so targets carry margin; the oracle preconditions below
-    # assert the data really has the intended shape
-    pairs = [
-        _subs_pair(rng, 560, 30),           # easy, npl=1-grade
-        _burst_subs_pair(rng, 560, 300),    # certified, past 252
-        _burst_subs_pair(rng, 560, 310),    # > k: overflow rewrite
-        _burst_subs_pair(rng, 560, 335),    # > k: overflow rewrite
-    ]
-    pats, txts, pl, tl = pack(pairs, R2)
-    cfg = AlignConfig(algo="genasm", read_size=R2, max_score=k,
-                      backtrace=True, mismatch=1, gap_i=1, gap_d=1,
-                      variant="hbm")
-    assert _npl(cfg) == 4 and long_fit_genasm(cfg)
-    out = genasm_forward_pallas_long(pats, txts, pl.astype(np.int32),
-                                     tl.astype(np.int32), cfg=cfg,
-                                     interpret=True)
-    packed = np.asarray(out["packed_runs"])
-    sc = packed[:, 1].astype(np.int32)
-    fb = ((packed[:, 0].astype(np.int32) >> 8) & 1).astype(bool)
-    osc, oops, ob, oe = nat.genasm_align(pats, txts, pl, tl, max_score=k,
-                                         backtrace=True)
-    # data-shape preconditions (oracle view): pair 1 certified past the
-    # old 252 cap, pairs 2-3 overflow k
-    assert 252 < osc[1] <= k and osc[2] == k + 1 and osc[3] == k + 1
-    ok = ~fb
-    assert list(ok) == [True] * 4
-    assert sc[2] == k + 1 and sc[3] == k + 1   # certified overflow rewrites
-    np.testing.assert_array_equal(sc[ok], osc[ok])
-    wops, wb, we = nat.wfa_runs_to_ops(packed, sc, pl, tl,
-                                       max_score=1 << 30,
-                                       max_ops=2 * cfg.read_size + 8)
-    for i in range(len(pl)):
-        if ok[i]:
-            assert cigar_of(wops[i], wb[i], we[i]) == \
-                cigar_of(oops[i], ob[i], oe[i]), i
-
-
-def test_runs_lanes_sizing_rule():
-    """runs_lanes_long sizes the record plane from the worst-case
-    certified run count (2 * max_score / cheapest-event-cost): small
-    budgets keep the historical 256 lanes; dense-edit budgets get
-    512/1024 so long-read CIGARs past 253 runs (NW 16 kbp band-retry
-    pairs need ~255+, SWG 16 kbp e=1% indel data ~320) stop
-    capacity-flagging on the wide bands that band-certify them."""
-    from aim_tpu.ops.nwswg_pallas_long import runs_lanes_long
-    small = AlignConfig(algo="swg", read_size=2048, max_score=300,
-                        backtrace=True, match=0, mismatch=3, gap_o=4,
-                        gap_e=1, variant="hbm")
-    assert runs_lanes_long(small) == 256          # need ~208
-    mid = small.replace(max_score=700)            # need ~474
-    assert runs_lanes_long(mid) == 512
-    nw = AlignConfig(algo="nw", read_size=16352, max_score=300,
-                     backtrace=True, gap_i=1, gap_d=1, mismatch=1)
-    assert runs_lanes_long(nw) == 1024            # unit costs: need ~608
-    nw_cheap = nw.replace(max_score=100)          # need ~208
-    assert runs_lanes_long(nw_cheap) == 256
-
-
-def test_streamed_record_capacity_past_256_interpret():
-    """Alignments whose CIGAR needs >253 runs (the old fixed ceiling)
-    must come back unflagged and byte-exact when the config sizes to a
-    wider record plane — and the >255 run cursor must round-trip the
-    lane0 split encoding (low 8 bits at 0-7, high bits at 10+) through
-    the native expander (oracle.cpp aim_wfa_runs_to_ops)."""
-    from aim_tpu.ops.nwswg_pallas_long import (nwswg_forward_pallas_long,
-                                               runs_lanes_long)
-    rng = np.random.default_rng(41)
-    R, l = 640, 600
-    bases = np.frombuffer(b"ACGT", np.uint8)
-    pats = np.zeros((8, R), np.uint8)
-    txts = np.zeros((8, R), np.uint8)
-    for i, nsub in enumerate((140, 180, 200, 240, 140, 180, 200, 240)):
-        p = bases[rng.integers(0, 4, l)]
-        t = p.copy()
-        # isolated substitutions every 2nd base: ~2*nsub+1 CIGAR runs
-        idx = np.arange(0, 2 * nsub, 2)
-        t[idx] = bases[(np.searchsorted(bases, t[idx]) + 1) % 4]
-        pats[i, :l] = p
-        txts[i, :l] = t
-    pl = np.full(8, l, np.int32)
-    tl = np.full(8, l, np.int32)
-    cfg = AlignConfig(algo="nw", read_size=R, max_score=400,
-                      backtrace=True, gap_i=1, gap_d=1, mismatch=1)
-    assert runs_lanes_long(cfg) == 1024
-    out = nwswg_forward_pallas_long(pats, txts, pl, tl, cfg=cfg,
-                                    interpret=True, planes=2)
-    packed = np.asarray(out["packed_runs"])
-    assert packed.shape[1] == 1024
-    sc = packed[:, 1].astype(np.int32)
-    fb = ((packed[:, 0].astype(np.int32) >> 8) & 1).astype(bool)
-    assert not fb.any()
-    osc, oops, ob, oe = nat.nw_align(pats, txts, pl, tl, mismatch=1,
-                                     gap_i=1, gap_d=1, backtrace=True)
-    np.testing.assert_array_equal(sc, osc)
-    wops, wb, we = nat.wfa_runs_to_ops(packed, sc, pl, tl,
-                                       max_score=1 << 30, max_ops=2 * R + 8)
-    over_256 = 0
-    for i in range(8):
-        c_oracle = cigar_of(oops[i], ob[i], oe[i])
-        assert cigar_of(wops[i], wb[i], we[i]) == c_oracle, i
-        # cigar_of returns the raw op string; RLE runs = op transitions
-        a = np.frombuffer(c_oracle, np.uint8)
-        n_runs = 1 + int((a[1:] != a[:-1]).sum())
-        if n_runs > 253:
-            over_256 += 1
-    assert over_256 >= 4          # the point of the test
-
-
-def test_wfa_long_scan_window_is_pure_perf_knob(monkeypatch):
-    """The extend scan window (_CW, TPU-tuned to 8 in round 4) must
-    never change results — step records are bit-identical across
-    window sizes (the on-chip guarantee tools/dev_cw_sweep.py checks;
-    this locks it in CI at a small geometry, both word layouts).
-
-    The packed-mode arm (bytes_mode=False) requires pack_seqs 2-bit
-    input — _wfa_long_jit unpacks with `(pats >> shifts) & 3`
-    (wfa_pallas_long.py); feeding it raw ASCII runs it on garbage."""
-    import jax
-
-    from aim_tpu.ops import wfa_pallas_long as WL
-    from aim_tpu.ops.common import pack_seqs
-
-    pairs = _pairs()
-    pats, txts, pl, tl = pack(pairs, R)
-    ppats, ptxts, packed = pack_seqs(pats, txts, pl, tl, R)
-    assert packed, "DNA test pairs must 2-bit pack"
-    cfg = AlignConfig(algo="wfa", read_size=R, max_score=40,
-                      backtrace=True, adaptive=True, variant="hbm")
-    recs, brecs = {}, {}
-    for cw in (2, 4, 8):
-        monkeypatch.setattr(WL, "_CW", cw)
-        fn = jax.jit(WL._wfa_long_jit.__wrapped__,
-                     static_argnames=("cfg", "interpret", "bytes_mode"))
-        out = fn(ppats, ptxts, pl.astype(np.int32), tl.astype(np.int32),
-                 cfg=cfg, interpret=True)
-        recs[cw] = np.asarray(out["step_records"])
-        outb = fn(pats, txts, pl.astype(np.int32), tl.astype(np.int32),
-                  cfg=cfg, interpret=True, bytes_mode=True)
-        brecs[cw] = np.asarray(outb["step_records"])
-    # CW is a pure perf knob within each word layout
-    assert np.array_equal(recs[2], recs[8])
-    assert np.array_equal(recs[4], recs[8])
-    assert np.array_equal(brecs[2], brecs[8])
-    assert np.array_equal(brecs[4], brecs[8])
-    # and the two layouts agree with each other on the step records
-    assert np.array_equal(recs[8], brecs[8]), \
-        "packed-mode records diverge from bytes-mode"
-
-
-def test_admission_routing_streamed_tier(monkeypatch):
-    """Configs whose e*l prediction puts the median pair past the C=63
-    band route their PRIMARY streamed pass to a wider plane count
-    (VERDICT r4 item 4: SWG 8 kbp e=1% flagged 98% on npl=1 and paid
-    that doomed dispatch before every retry).  Routing is perf-only —
-    every plane count re-derives its own exactness flags."""
-    from aim_tpu.config import derive_config
-    from aim_tpu.ops.nwswg_pallas_long import route_planes
-    from aim_tpu.ops.pallas_kernels import long_fit_nwswg_routed
-
-    swg8 = derive_config("swg", 8000, 0.01, backtrace=True, variant="hbm")
-    swg4 = derive_config("swg", 4000, 0.01, backtrace=True, variant="hbm")
-    swg12 = derive_config("swg", 12000, 0.01, backtrace=True,
-                          variant="hbm")
-    nw8 = derive_config("nw", 8000, 0.01, backtrace=True, variant="hbm")
-    # planted-error model (datagen semantics): SWG e=1% median score
-    # ~0.86*max_score — measured 345 at 8 kbp (smax 400), so 8 kbp needs
-    # the C=255 band, 4 kbp the C=127 one, and 12/16 kbp the C=511 one
-    # (p90 dmax ~283/378 > 255 — npl=8 TPU-certified in round 5); a
-    # 2 kbp run fits C=63; NW's cheaper per-edit costs keep 8 kbp on
-    # the primary band
-    swg2 = derive_config("swg", 2000, 0.01, backtrace=True, variant="hbm")
-    swg16 = derive_config("swg", 16000, 0.01, backtrace=True,
-                          variant="hbm")
-    assert route_planes(swg8) == 4
-    assert route_planes(swg4) == 2
-    assert route_planes(swg12) == 8
-    assert route_planes(swg16) == 8
-    assert route_planes(swg2) == 1
-    assert route_planes(nw8) == 1
-
-    # the routed plane count is wired as the primary tier's planes and
-    # primary_planes (so the retry ladder drops not-wider stages)
-    fn = long_fit_nwswg_routed(swg8)
-    assert fn is not None and fn.primary_planes == 4
-    fn1 = long_fit_nwswg_routed(swg2)
-    assert fn1 is not None and fn1.primary_planes == 1
-
-    # kill switch
-    monkeypatch.setenv("AIM_TPU_ROUTE", "0")
-    assert route_planes(swg8) == 1
-
-    # routed primary is exact on a tiny geometry (interpret mode):
-    # same outputs as the explicit npl=1 run for unflagged pairs
-    import jax
-    import numpy as np
-    from aim_tpu.ops.nwswg_pallas_long import nwswg_forward_pallas_long
-    monkeypatch.delenv("AIM_TPU_ROUTE", raising=False)
-    rng = random.Random(17)
-    pairs = [make_pair(rng, 40, 40, rng.randrange(0, 26)) for _ in range(8)]
-    pats, txts, pl_, tl_ = pack(pairs, 48)
-    cfg = AlignConfig(algo="swg", read_size=48, max_score=260, match=0,
-                      mismatch=3, gap_o=4, gap_e=1, backtrace=True,
-                      variant="hbm")
-    assert route_planes(cfg) >= 2
-    o1 = nwswg_forward_pallas_long(pats, txts, pl_, tl_, cfg=cfg,
-                                   planes=1, interpret=True)
-    o2 = nwswg_forward_pallas_long(pats, txts, pl_, tl_, cfg=cfg,
-                                   planes=2, interpret=True)
-    r1 = np.asarray(o1["packed_runs"])
-    r2 = np.asarray(o2["packed_runs"])
-    ok1 = ((r1[:, 0].astype(np.int32) >> 8) & 1) == 0
-    ok2 = ((r2[:, 0].astype(np.int32) >> 8) & 1) == 0
-    # npl=2 certifies at least what npl=1 did, and agrees where both do
-    assert (ok1 <= ok2).all()
-    both = ok1 & ok2
-    np.testing.assert_array_equal(r1[both, 1], r2[both, 1])
-
-
-def test_wfa_long_16kbp_admission_fits_vmem():
-    """The envelope edge (l~16 kbp, smax=800, Kp=1664) must admit a
-    tile size whose REAL Mosaic stack fits the 16 MiB scoped-vmem
-    limit: round 5 found P=64 admitted by a 2 MiB reserve while the
-    compiler needed 16.59 MiB (runtime OOM); the 3 MiB reserve routes
-    this config to P=48, which compiles and certifies on TPU
-    (artifacts/sweep_r05.txt)."""
-    from aim_tpu.config import derive_config
-    from aim_tpu.ops.wfa_pallas_long import long_fit, long_tile_pairs
-
-    edge = derive_config("wfa", 16000, 0.01, backtrace=True,
-                         adaptive=True, variant="hbm")
-    assert edge.max_score == 800
-    assert long_fit(edge)
-    assert long_tile_pairs(edge) <= 48
-    mid = derive_config("wfa", 10000, 0.01, backtrace=True,
-                        adaptive=True, variant="hbm")
-    assert long_tile_pairs(mid) == 64   # unchanged by the reserve bump

@@ -1,4 +1,4 @@
-"""WFA overflow-backtrace compat flag (VERDICT r3 item 8): by default
+"""WFA overflow-backtrace compat flag: by default
 both tiers adopt the MRAM variant's skip on score > MAX_SCORE (ref:
 WFA/DPU-MRAM/dpu/wfa.c:399-404, the canonical-run behavior);
 --overflow-backtrace opts into a DEFINED rendition of the WRAM variant's

@@ -1,12 +1,18 @@
 """Multi-device pair sharding on the virtual 8-device CPU mesh."""
 
+import os
+
 import jax
 import numpy as np
+import pytest
 
 import aim_tpu.native as nat
 from aim_tpu.config import AlignConfig
 from aim_tpu.parallel import make_mesh, pair_sharding
+from tests.test_kernels_xla import ALGOS, assert_matches_oracle
 from tests.util import cigar_of, pack, random_pairs
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_eight_device_mesh_available():
@@ -18,7 +24,7 @@ def test_sharded_wfa_matches_oracle():
     pairs = random_pairs(seed=31, n=64, max_len=R)
     pats, txts, pl, tl = pack(pairs, R)
     cfg = AlignConfig(algo="wfa", read_size=R, max_score=12, backtrace=True,
-                      backend="xla", adaptive=True, batch_pairs=64)
+                      adaptive=True, batch_pairs=64)
     from aim_tpu.api import align
     sharding = pair_sharding(make_mesh())
     res = align(pats, txts, pl, tl, cfg, device_sharding=sharding)
@@ -31,34 +37,6 @@ def test_sharded_wfa_matches_oracle():
             cigar_of(oops[i], ob[i], oe[i])
 
 
-def test_shard_map_pallas_interpret_matches_oracle():
-    """The real multi-chip code path (one Pallas kernel instance per pair
-    shard via shard_map), in interpreter mode on the CPU mesh."""
-    import functools
-    from jax.sharding import PartitionSpec as P
-    shard_map = jax.shard_map
-    from aim_tpu.ops.wfa_pallas2 import wfa_forward_pallas2
-
-    R = 24
-    pairs = random_pairs(seed=37, n=128, max_len=R)
-    pats, txts, pl, tl = pack(pairs, R)
-    cfg = AlignConfig(algo="wfa", read_size=R, max_score=12, backtrace=True,
-                      adaptive=True)
-    mesh = make_mesh()
-    inner = functools.partial(wfa_forward_pallas2, cfg=cfg, interpret=True)
-    fn = shard_map(lambda a, b, c, d: inner(a, b, c, d), mesh=mesh,
-                   in_specs=(P("pairs"),) * 4,
-                   out_specs={"step_records": P("pairs", None)},
-                   check_vma=False)
-    recs = np.asarray(fn(pats, txts, pl.astype(np.int32),
-                         tl.astype(np.int32))["step_records"])
-    sc = recs[:, cfg.max_score + 3]
-    osc, _, _, _ = nat.wfa_align(pats, txts, pl, tl, mismatch=3, gap_o=4,
-                                 gap_e=1, max_score=12, adaptive=True,
-                                 backtrace=False)
-    np.testing.assert_array_equal(sc, osc)
-
-
 def test_multihost_runner_single_process(tmp_path):
     from aim_tpu.parallel.runner import align_file_multihost
     from tests.util import write_pair_file
@@ -66,8 +44,7 @@ def test_multihost_runner_single_process(tmp_path):
     inp = str(tmp_path / "pairs.txt")
     write_pair_file(inp, pairs)
     out = str(tmp_path / "out.txt")
-    cfg = AlignConfig(algo="wfa", read_size=32, max_score=8, backtrace=True,
-                      backend="xla")
+    cfg = AlignConfig(algo="wfa", read_size=32, max_score=8, backtrace=True)
     n, res = align_file_multihost(inp, out, 24, cfg, verbose=False)
     assert n == 24
     lines = open(out).read().splitlines()
@@ -89,8 +66,7 @@ def test_multihost_runner_two_processes(tmp_path):
     inp = str(tmp_path / "pairs.txt")
     write_pair_file(inp, pairs)
     ref_out = str(tmp_path / "ref.txt")
-    cfg = AlignConfig(algo="wfa", read_size=32, max_score=8, backtrace=True,
-                      backend="xla")
+    cfg = AlignConfig(algo="wfa", read_size=32, max_score=8, backtrace=True)
     align_file_multihost(inp, ref_out, 30, cfg, verbose=False)
 
     out = str(tmp_path / "out.txt")
@@ -99,18 +75,17 @@ def test_multihost_runner_two_processes(tmp_path):
         "from aim_tpu.config import AlignConfig\n"
         "from aim_tpu.parallel.runner import align_file_multihost\n"
         "cfg = AlignConfig(algo='wfa', read_size=32, max_score=8,\n"
-        "                  backtrace=True, backend='xla')\n"
+        "                  backtrace=True)\n"
         "align_file_multihost(sys.argv[1], sys.argv[2], 30, cfg,\n"
         "                     process_id=int(sys.argv[3]), n_processes=2,\n"
         "                     verbose=False)\n")
     procs = [subprocess.Popen([sys.executable, "-c", script, inp, out,
-                               str(p)], cwd="/root/repo")
+                               str(p)], cwd=REPO)
              for p in (0, 1)]
     for pr in procs:
         assert pr.wait(timeout=300) == 0
     assert open(out, "rb").read() == open(ref_out, "rb").read()
     # parts were consumed by the concatenation
-    import os
     assert not os.path.exists(out + ".part0")
     assert not os.path.exists(out + ".part1")
 
@@ -125,136 +100,16 @@ def test_shard_range_covers_and_preserves_order():
     assert covered == list(range(total))
 
 
-def test_shard_map_long_kernel_interpret_matches_oracle():
-    """The HBM-spill long-read kernel under shard_map (per-shard DMA ring
-    + ANY-space history), interpret mode on the CPU mesh."""
-    import functools
-    from jax.sharding import PartitionSpec as P
-    shard_map = jax.shard_map
-    from aim_tpu.ops.common import pack_seqs
-    from aim_tpu.ops.wfa_pallas_long import wfa_forward_pallas_long
-
-    R = 40
-    pairs = random_pairs(seed=53, n=64, max_len=R - 8)
-    pats, txts, pl, tl = pack(pairs, R)
-    cfg = AlignConfig(algo="wfa", read_size=R, max_score=10, backtrace=True,
-                      adaptive=True, variant="hbm")
-    pp, pt, ok = pack_seqs(pats, txts, pl, tl, R)
-    assert ok
-    mesh = make_mesh()
-    inner = functools.partial(wfa_forward_pallas_long, cfg=cfg,
-                              interpret=True, packed=True)
-    fn = shard_map(lambda a, b, c, d: inner(a, b, c, d), mesh=mesh,
-                   in_specs=(P("pairs"),) * 4,
-                   out_specs={"step_records": P("pairs", None)},
-                   check_vma=False)
-    recs = np.asarray(fn(pp, pt, pl.astype(np.int32),
-                         tl.astype(np.int32))["step_records"])
-    sc = recs[:, cfg.max_score + 3]
-    osc, _, _, _ = nat.wfa_align(pats, txts, pl, tl, mismatch=3, gap_o=4,
-                                 gap_e=1, max_score=10, adaptive=True,
-                                 backtrace=False)
-    np.testing.assert_array_equal(sc, osc)
-
-
-def test_shard_map_nw_via_api_wrapper():
-    """NW banded Pallas kernel through api.align's OWN shard_map wrapper
-    (_forward_fn's 'packed_runs' out_specs branch), interpret mode on the
-    CPU mesh — the real multi-chip NW path."""
-    from aim_tpu.api import _forward_fn
-    from tests.util import cigar_of
-    R = 40
-    pairs = random_pairs(seed=53, n=128, max_len=R - 8)
-    pats, txts, pl, tl = pack(pairs, R)
-    cfg = AlignConfig(algo="nw", read_size=R, max_score=10, backtrace=True,
-                      gap_i=2, gap_d=3, mismatch=3, backend="pallas")
-    fwd = _forward_fn(cfg, pair_sharding(make_mesh()))
-    assert getattr(fwd, "supports_packed", False)
-    out = fwd(pats, txts, pl.astype(np.int32), tl.astype(np.int32),
-              cfg=cfg, interpret=True)
-    packed = np.asarray(out["packed_runs"])
-    sc = packed[:, 1].astype(np.int32)
-    fb = ((packed[:, 0].astype(np.int32) >> 8) & 1).astype(bool)
-    osc, oops, ob, oe = nat.nw_align(pats, txts, pl, tl, mismatch=3,
-                                     gap_i=2, gap_d=3, backtrace=True)
-    ok = ~fb
-    assert ok.mean() > 0.5
-    np.testing.assert_array_equal(sc[ok], osc[ok])
-    wops, wb, we = nat.wfa_runs_to_ops(packed, sc, pl, tl,
-                                       max_score=1 << 30, max_ops=2 * R)
-    for i in range(len(pairs)):
-        if ok[i]:
-            assert cigar_of(oops[i], ob[i], oe[i]) == \
-                cigar_of(wops[i], wb[i], we[i]), (i, pairs[i])
-
-
-def test_shard_map_swg_via_api_wrapper():
-    """SWG banded Pallas kernel through api.align's OWN shard_map wrapper,
-    interpret mode on the CPU mesh."""
-    from aim_tpu.api import _forward_fn
-    from tests.util import cigar_of
-    R = 40
-    pairs = random_pairs(seed=59, n=128, max_len=R - 8)
-    pats, txts, pl, tl = pack(pairs, R)
-    cfg = AlignConfig(algo="swg", read_size=R, max_score=26, backtrace=True,
-                      match=0, mismatch=3, gap_o=4, gap_e=1,
-                      backend="pallas")
-    fwd = _forward_fn(cfg, pair_sharding(make_mesh()))
-    assert getattr(fwd, "supports_packed", False)
-    out = fwd(pats, txts, pl.astype(np.int32), tl.astype(np.int32),
-              cfg=cfg, interpret=True)
-    packed = np.asarray(out["packed_runs"])
-    sc = packed[:, 1].astype(np.int32)
-    fb = ((packed[:, 0].astype(np.int32) >> 8) & 1).astype(bool)
-    osc, oops, ob, oe = nat.swg_align(pats, txts, pl, tl, match=0,
-                                      mismatch=3, gap_o=4, gap_e=1,
-                                      max_score=26,
-                                      cell_width=cfg.cell_width,
-                                      backtrace=True)
-    ok = ~fb
-    assert ok.mean() > 0.5
-    np.testing.assert_array_equal(sc[ok], osc[ok])
-    wops, wb, we = nat.wfa_runs_to_ops(packed, sc, pl, tl,
-                                       max_score=1 << 30, max_ops=2 * R)
-    for i in range(len(pairs)):
-        if ok[i]:
-            assert cigar_of(oops[i], ob[i], oe[i]) == \
-                cigar_of(wops[i], wb[i], we[i]), (i, pairs[i])
-
-
-def test_shard_map_wide_retry_via_api_wrapper():
-    """The wide-band retry tier through api._forward_fn's own shard_map
-    wrapping (smfn.retry_fn): beyond-C63-envelope SWG pairs certify on
-    the sharded npl=2 kernel, interpret mode on the CPU mesh."""
-    import random
-    from aim_tpu.api import _forward_fn
-    from tests.test_longread import _subs_pair
-    R = 640
-    rng = random.Random(67)
-    pairs = [_subs_pair(rng, rng.randrange(560, 620), rng.randrange(51, 70))
-             for _ in range(128)]     # score 153-207: past C=63, in C=127
-    pats, txts, pl, tl = pack(pairs, R)
-    cfg = AlignConfig(algo="swg", read_size=R, max_score=400,
-                      backtrace=True, match=0, mismatch=3, gap_o=4,
-                      gap_e=1, variant="hbm", backend="pallas")
-    fwd = _forward_fn(cfg, pair_sharding(make_mesh()))
-    retry = getattr(fwd, "retry_fn", None)
-    assert retry is not None
-    out = retry(pats, txts, pl.astype(np.int32), tl.astype(np.int32),
-                cfg=cfg, interpret=True)
-    packed = np.asarray(out["packed_runs"])
-    sc = packed[:, 1].astype(np.int32)
-    fb = ((packed[:, 0].astype(np.int32) >> 8) & 1).astype(bool)
-    osc, oops, ob, oe = nat.swg_align(pats, txts, pl, tl, match=0,
-                                      mismatch=3, gap_o=4, gap_e=1,
-                                      max_score=400, cell_width=2,
-                                      backtrace=True)
-    ok = ~fb
-    assert ok.mean() > 0.9 and (osc[ok] > 132).any()
-    np.testing.assert_array_equal(sc[ok], osc[ok])
-    wops, wb, we = nat.wfa_runs_to_ops(packed, sc, pl, tl,
-                                       max_score=1 << 30, max_ops=2 * R)
-    for i in range(0, len(pairs), 7):
-        if ok[i]:
-            assert cigar_of(oops[i], ob[i], oe[i]) == \
-                cigar_of(wops[i], wb[i], we[i]), i
+@pytest.mark.parametrize("backtrace", [True, False])
+@pytest.mark.parametrize("name", ["genasm", "nw", "swg"])
+def test_sharded_matches_oracle(name, backtrace):
+    """The CLI's default multi-device path: the batch split over the
+    8-device 'pairs' mesh, one jit program (SPMD)."""
+    from aim_tpu.api import align
+    pairs = random_pairs(seed=97, n=128, max_len=28)
+    pats, txts, pl, tl = pack(pairs, 32)
+    cfg = AlignConfig(read_size=32, backtrace=backtrace, batch_pairs=64,
+                      **ALGOS[name])
+    res = align(pats, txts, pl, tl, cfg,
+                device_sharding=pair_sharding(make_mesh()))
+    assert_matches_oracle(res, cfg, pats, txts, pl, tl)

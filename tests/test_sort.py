@@ -51,7 +51,7 @@ def test_sorted_identical(algo, monkeypatch):
 
 
 def test_sort_exact_under_sharding(monkeypatch):
-    # Shard-aware sort (VERDICT r3 item 5): results restored to the idx
+    # Shard-aware sort: results restored to the idx
     # contract, bit-identical to the oracle, with the sort active on a
     # multi-device mesh.
     jax = pytest.importorskip("jax")
