@@ -47,6 +47,7 @@ class AlignResult:
     t_kernel: float = 0.0
     t_retrieve: float = 0.0
     n_fallback: int = 0  # pairs served by the exact host oracle
+    n_devices: int = 1   # cards the batches were sharded over
     # Measured host-side energy over the whole align() span (J), from
     # RAPL powercap counters when the host exposes them; None otherwise.
     energy_measured_j: float | None = None
@@ -141,7 +142,7 @@ def per_pair_bytes(cfg: AlignConfig) -> int:
     R = cfg.read_size
     if cfg.algo == ALGO_WFA:
         K = 2 * cfg.max_score + 1
-        # next-mismatch table build (byte gather, int16 keys, scan
+        # next-mismatch table build (byte gather, int32 keys, scan
         # temporaries, the int16 table) + history and its packed copy
         return 5 * K * (R + 1) + 12 * (cfg.max_score + 2) * K + 4 * R
     if cfg.backtrace:
@@ -303,6 +304,7 @@ def _align_impl(pats, txts, plens, tlens, cfg: AlignConfig,
     # Constant per-chunk shape (one jit specialization); padded tail pairs
     # have zero lengths and finish immediately.
     ndev = getattr(device_sharding, "num_devices", None) or 1
+    res.n_devices = ndev
     bs, _ = _plan_bs(cfg, n, ndev)
 
     def put(a):
@@ -489,26 +491,30 @@ def _read_energy_uj():
 
 
 @functools.lru_cache(maxsize=1)
-def card_power_limit_w() -> float | None:
-    """The first card's power limit in watts as nvidia-smi reports it, or
-    None when it cannot be read (no card, no nvidia-smi)."""
+def card_power_limits_w() -> tuple[float, ...]:
+    """Every card's power limit in watts, in nvidia-smi's order; empty
+    when they cannot be read (no card, no nvidia-smi)."""
     try:
         r = subprocess.run(
             ["nvidia-smi", "--query-gpu=power.limit",
              "--format=csv,noheader,nounits"],
             capture_output=True, text=True, timeout=30)
-        return float(r.stdout.split()[0]) if r.returncode == 0 else None
-    except (OSError, subprocess.SubprocessError, ValueError, IndexError):
-        return None
+        return tuple(float(w) for w in r.stdout.split()) \
+            if r.returncode == 0 else ()
+    except (OSError, subprocess.SubprocessError, ValueError):
+        return ()
 
 
 def energy_estimate_joules(res: AlignResult) -> float | None:
     """Energy-probe substitute (ref: host.c:62-67,285-296 -DENERGY uses
-    UPMEM dpu_probe counters): kernel-phase seconds x the card's power
-    limit — an upper-bound estimate, labeled as such.  None when the
-    power limit cannot be read; no wattage is assumed."""
-    watts = card_power_limit_w()
-    return None if watts is None else res.t_kernel * watts
+    UPMEM dpu_probe counters): kernel-phase seconds x the summed power
+    limits of the res.n_devices cards the run used — an upper-bound
+    estimate, labeled as such.  None when those limits cannot be read;
+    no wattage is assumed."""
+    watts = card_power_limits_w()[:res.n_devices]
+    if len(watts) < res.n_devices:
+        return None
+    return res.t_kernel * sum(watts)
 
 
 def _energy_text(res: AlignResult) -> str:
@@ -581,9 +587,9 @@ def align_file(input_path: str, output_path: str, n_reads: int,
         if energy:
             # ref: host.c:285-296 prints "DPU Kernel Energy (J): ..."
             e = energy_estimate_joules(res)
-            print("Device kernel energy (J, estimated at the card's power "
-                  "limit): " + ("not available: the card's power limit "
-                                "cannot be read" if e is None else f"{e:f}"))
+            print("Device kernel energy (J, estimated at the cards' power "
+                  "limits): " + ("not available: the cards' power limits "
+                                 "cannot be read" if e is None else f"{e:f}"))
             if res.energy_measured_j is not None:
                 print(f"Host Energy (J, measured, RAPL package+DRAM over "
                       f"the align span): {res.energy_measured_j:f}")

@@ -69,7 +69,7 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--energy", action="store_true",
                        help="print an estimated kernel-phase energy (J); "
                             "the reference's -DENERGY probe analogue "
-                            "(device-seconds x the card's power limit)")
+                            "(device-seconds x the cards' power limits)")
         p.add_argument("--device-log", type=str, default="",
                        help="per-device run log path (the reference's "
                             "dpu-out file; disabled when empty)")

@@ -188,9 +188,10 @@ def main() -> int:
                       work)
     if not args.four:
         gpu_tests()
+    # the cards the phases ran on: one (-d 1), or all four
     print(json.dumps({"ok": True, "device": {
         "platform": devs[0].platform, "kind": devs[0].device_kind,
-        "count": len(devs)}}))
+        "count": len(devs) if args.four else 1}}))
     return 0
 
 

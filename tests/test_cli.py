@@ -1,6 +1,8 @@
 """End-to-end CLI tests: file in -> reference-format file out, byte-identical
 to the oracle pipeline."""
 
+import re
+
 import numpy as np
 import pytest
 
@@ -120,15 +122,42 @@ def test_cli_energy_estimate(tmp_path, pair_file, capsys):
                "-n", "40", "--energy",
                "--device-log", str(tmp_path / "dev.log")])
     assert rc == 0
-    from aim_tpu.api import card_power_limit_w
+    from aim_tpu.api import card_power_limits_w
     out = capsys.readouterr().out
-    assert "Device kernel energy (J, estimated at the card's power limit):" \
-        in out
+    assert "Device kernel energy (J, estimated at the cards' power " \
+        "limits):" in out
     log = open(tmp_path / "dev.log").read()
     assert "energy_est_J=" in log
-    if card_power_limit_w() is None:
-        # no wattage is assumed when the card's limit cannot be read
+    if not card_power_limits_w():
+        # no wattage is assumed when the cards' limits cannot be read
         assert "not available" in out and "energy_est_J=n/a" in log
+
+
+@pytest.mark.parametrize("ndev", [1, 2, 4])
+def test_energy_estimate_sums_the_cards_used(tmp_path, pair_file, capsys,
+                                             monkeypatch, ndev):
+    """A run sharded over n cards is charged the power limits of those n
+    cards; with fewer readable limits than cards no figure is given."""
+    from aim_tpu import api
+    limits = (700.0, 700.0, 400.0, 400.0)
+    monkeypatch.setattr(api, "card_power_limits_w", lambda: limits)
+    rc = main(["wfa", "-i", pair_file, "-o", str(tmp_path / "e.out"),
+               "-l", "20", "-e", "0.05", "-n", "40", "-d", str(ndev),
+               "--energy"])
+    assert rc == 0
+    out = capsys.readouterr().out
+    t_kernel = float(re.search(r"^Device kernel: ([0-9.]+) ms", out,
+                               re.M).group(1)) / 1e3
+    joules = float(re.search(r"^Device kernel energy .*: ([0-9.]+)$", out,
+                             re.M).group(1))
+    assert joules == pytest.approx(t_kernel * sum(limits[:ndev]),
+                                   rel=1e-3, abs=1e-5)
+    assert api.energy_estimate_joules(
+        api.AlignResult(np.zeros(1, np.int32), t_kernel=2.0,
+                        n_devices=ndev)) == 2.0 * sum(limits[:ndev])
+    assert api.energy_estimate_joules(
+        api.AlignResult(np.zeros(1, np.int32), t_kernel=2.0,
+                        n_devices=5)) is None
 
 
 @pytest.mark.slow

@@ -1,14 +1,9 @@
-"""On-card measurements behind the device tiers' choices (PERF.md).
+"""On-card measurements of the device tiers (PERF.md).
 
-1. A/B of each plain-XLA formulation the kernels use against an
-   alternative formulation of the same operation, end to end: each arm is
-   api.align over the same aim_tpu.datagen pairs, arms alternate in one
-   process (A B B A ...), warm-up excluded.
-     extend       WFA extend: take_along_axis gather vs one-hot reduce
-     gather_lane  per-row lane gather: take_along_axis vs one-hot reduce
-     min_plus     min-plus scan: lax.cummin vs a log2(W) roll ladder
-2. The device batch size (cfg.batch_pairs) at the headline config.
-3. With --trace DIR: one profiled align_file per smoke phase config, each
+1. The device batch size (cfg.batch_pairs) at the headline config: each
+   arm is api.align over the same aim_tpu.datagen pairs, arms alternate
+   in one process (A B B A ...), warm-up excluded.
+2. With --trace DIR: one profiled align_file per smoke phase config, each
    reduced to device busy/idle share and top operations
    (tools/trace_top_ops.py).
 
@@ -31,80 +26,10 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
-import jax.numpy as jnp  # noqa: E402
 
 from aim_tpu import api  # noqa: E402
 from aim_tpu.config import derive_config  # noqa: E402
 from aim_tpu.datagen import generate_pairs, write_pair_file  # noqa: E402
-from aim_tpu.ops import nw_xla, swg_xla, wfa_xla  # noqa: E402
-
-# ---- the alternative formulations, kept here only as the B arms ---------
-
-
-def onehot_extend(nm, off):
-    h = jax.lax.broadcasted_iota(jnp.int32, (1, 1, nm.shape[2]), 2)
-    return jnp.sum(jnp.where(h == off[:, :, None], nm.astype(jnp.int32), 0),
-                   axis=2)
-
-
-def onehot_gather_lane(x, idx):
-    lanes = jax.lax.broadcasted_iota(jnp.int32, x.shape, 1)
-    return jnp.sum(jnp.where(lanes == idx[:, None], x, 0), axis=1)
-
-
-def roll_min_plus_scan(z, slope):
-    width = z.shape[-1]
-    ramp = jax.lax.broadcasted_iota(jnp.int32, z.shape, z.ndim - 1) * slope
-    x = z - ramp
-    pos = jax.lax.broadcasted_iota(jnp.int32, z.shape, z.ndim - 1)
-    shift = 1
-    while shift < width:
-        shifted = jnp.where(pos >= shift, jnp.roll(x, shift, axis=-1),
-                            jnp.int32(2 ** 24))
-        x = jnp.minimum(x, shifted)
-        shift *= 2
-    return x + ramp
-
-
-FORWARD = {"wfa": (wfa_xla, "wfa_forward"), "nw": (nw_xla, "nw_forward"),
-           "swg": (swg_xla, "swg_forward")}
-
-
-def variant_forward(algo, patches):
-    """A fresh jit of the algorithm's forward, traced with `patches`
-    ((module, attr) -> replacement) in place; each returned function
-    keeps its own compiled executables."""
-    mod, name = FORWARD[algo]
-    raw = getattr(mod, name).__wrapped__
-    # a function object of its own: jit's trace cache is keyed on it
-    fn = jax.jit(lambda *a, cfg: raw(*a, cfg=cfg), static_argnames=("cfg",))
-    traced = set()
-
-    def call(*args, cfg):
-        key = (cfg, tuple(a.shape for a in args))
-        if key in traced:
-            return fn(*args, cfg=cfg)
-        saved = {k: getattr(*k) for k in patches}
-        for (m, attr), val in patches.items():
-            setattr(m, attr, val)
-        try:
-            out = fn(*args, cfg=cfg)  # traced under the patch
-        finally:
-            for (m, attr), val in saved.items():
-                setattr(m, attr, val)
-        traced.add(key)
-        return out
-
-    return call
-
-
-def align_with(fwd, arrays, cfg):
-    saved = api._forward_fn
-    api._forward_fn = lambda c: fwd
-    try:
-        return api.align(*arrays, cfg)
-    finally:
-        api._forward_fn = saved
 
 
 def alternate(name, arms, n, rounds, extra=None):
@@ -125,20 +50,6 @@ def alternate(name, arms, n, rounds, extra=None):
                   "pairs_per_s_median": n / statistics.median(ts)}
     rec.update(extra or {})
     print(json.dumps(rec), flush=True)
-
-
-def ab_formulation(label, algo, cfg, patches, n, rounds):
-    arrays = generate_pairs(n, cfg_length(cfg), 0.01, cfg.read_size, seed=3)
-    a = variant_forward(algo, {})
-    b = variant_forward(algo, patches)
-    alternate(f"{label} {algo} R={cfg.read_size} bt={cfg.backtrace}",
-              {"plain": lambda: align_with(a, arrays, cfg),
-               "alternative": lambda: align_with(b, arrays, cfg)}, n, rounds)
-
-
-def cfg_length(cfg):
-    return 10_000 if cfg.read_size > 5000 else (
-        1000 if cfg.read_size > 500 else 100)
 
 
 def batch_sizes(n, sizes, rounds):
@@ -211,29 +122,6 @@ def main():
                                  "kind": devs[0].device_kind,
                                  "count": len(devs)}}), flush=True)
     rounds = 1 if args.small else args.rounds
-    n100 = 2048 if args.small else 262_144
-    n10k = 8 if args.small else 32
-
-    wfa100 = derive_config("wfa", 100, 0.01, backtrace=True, adaptive=True)
-    wfa10k = derive_config("wfa", 10_000, 0.01, backtrace=True,
-                           adaptive=True, variant="hbm")
-    ab_formulation("extend", "wfa", wfa100,
-                   {(wfa_xla, "extend"): onehot_extend}, n100, rounds)
-    ab_formulation("extend", "wfa", wfa10k,
-                   {(wfa_xla, "extend"): onehot_extend}, n10k,
-                   min(rounds, 2))
-    for algo in ("nw", "swg"):
-        cfg = derive_config(algo, 100, 0.01, backtrace=True)
-        mod = FORWARD[algo][0]
-        ab_formulation("gather_lane", algo, cfg,
-                       {(mod, "gather_lane"): onehot_gather_lane},
-                       n100 // 2, rounds)
-        ab_formulation("min_plus", algo, cfg,
-                       {(mod, "min_plus_scan"): roll_min_plus_scan},
-                       n100 // 2, rounds)
-    ab_formulation("gather_lane", "wfa", wfa100,
-                   {(wfa_xla, "gather_lane"): onehot_gather_lane}, n100,
-                   rounds)
     if args.small:
         batch_sizes(4096, (1024, 2048), 1)
     else:
